@@ -1,0 +1,627 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of CacheGenius on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--requests 16] [--out results.json]
+
+Run from the root of a checkout.  Phases, one status line each; any
+failure exits nonzero (nothing is caught):
+
+1. card and build — print the card's name and power limit
+   (``nvidia-smi``), fix the TF32 flags, build the CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
+   source, all at once).
+2. kernels — each kernel of the serving path against its plain PyTorch
+   version on the same inputs on the card, at the main path's shapes:
+   the cluster scans (K1 per node, K2 masked/global) at Q=8 queries,
+   4 nodes x 400 slots x 512 dims, k=8, with a random case, an exact-tie
+   case and an empty node; flash attention (K4) and fused adaLN (K5) at
+   DiT-B/2 shapes, batch 8.  Prints error, tolerance, kernel / plain /
+   library milliseconds and the bound.
+3. serve — ``build_system(n_nodes=4, res=256)`` over a dit-b2-width DiT
+   (12 layers, 768 wide, 12 heads, patch 2, 256 tokens) and the full f8
+   VAE at 256 px, random seeded weights; ``ServingEngine(max_batch=8)``
+   drains the trace under score routing, then a few more requests under
+   centroid routing.  Launch counts are zeroed right before each drive
+   and read right after; a kernel of the path with no launch fails.
+4. check — outputs are finite images of the right shape; the cluster
+   scans agree with a CPU index over the same fleet; the DiT with its
+   kernels agrees with the plain DiT on the card at full size and with
+   the plain DiT on the CPU at a small size.
+
+The last two lines of standard output are one JSON object per kernel
+(``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM published peaks (data sheet; dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+# kernel tolerances (f32 vs f32, TF32 off): a kernel sums in another
+# order than the plain version — dot products of 512 (scan) or 64
+# (attention) terms and 768-wide row statistics (adaLN)
+KERNEL_TOL = 2e-5
+# the whole DiT (12 blocks, kernels vs plain): per-block rounding
+# differences compound through the residual stream; relative to the
+# output's largest magnitude
+DIT_REL_TOL = 1e-4
+
+# dit-b2 at 256 px (src/repro/configs/dit_b2.py) over the full f8 VAE
+# (FULL_VAE in src/repro/configs/diffusion_common.py)
+DIT_B2 = dict(img_res=32, in_ch=4, patch=2, n_layers=12, d_model=768,
+              n_heads=12, ctx_dim=512)
+FULL_VAE = dict(in_ch=3, base_ch=128, ch_mult=(1, 2, 4), z_ch=4, n_res=2)
+SERVE_RES = 256          # corpus and generated images, px
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Time per call as the caller sees it: ``iters`` back-to-back eager
+    calls between two CUDA events, so host launch cost counts wherever
+    it exceeds the device time (inputs stay warm in L2)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph and
+    the graph replayed ``replays`` times between two CUDA events — no
+    host launch cost in the measurement (inputs stay warm in L2)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def timed(row: dict, kernel, plain, library=None) -> dict:
+    """Device and per-call times of a kernel, its plain version and the
+    library call into ``row``."""
+    row.update(ms=device_ms(kernel), plain_ms=device_ms(plain),
+               library_ms=None if library is None else device_ms(library),
+               call_ms=call_ms(kernel), plain_call_ms=call_ms(plain))
+    return row
+
+
+def bound(bytes_moved: float, flops: float):
+    t_mem = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def scan_inputs(gen, *, ties: bool, dev):
+    """Q=8 queries, 2 planes x 4 nodes x 400 slots x 512 dims; node 3
+    empty.  ``ties``: integer-valued vectors with repeated rows, so equal
+    scores are exact in any summation order."""
+    import torch
+    shape = (2, 4, 400, 512)
+    if ties:
+        slabs = torch.randint(-1, 2, shape, generator=gen).float()
+        slabs[:, 0, 200:300] = slabs[:, 0, 0:100]
+        slabs[:, 1, 7] = slabs[:, 1, 399]
+        q = torch.randint(-1, 2, (8, 512), generator=gen).float()
+    else:
+        slabs = torch.randn(shape, generator=gen)
+        slabs /= slabs.norm(dim=-1, keepdim=True)
+        q = torch.randn((8, 512), generator=gen)
+        q /= q.norm(dim=-1, keepdim=True)
+    valid = torch.rand((4, 400), generator=gen) < 0.7
+    valid[3] = False
+    nids = torch.tensor([0, 1, 2, 3, 0, 1, 2, 2], dtype=torch.int32)
+    return [t.to(dev) for t in (q, slabs, valid, nids)]
+
+
+def check_topk(name, got, want, full, offset, tol):
+    """Kernel top-k vs plain top-k.  Masked candidates: ``-inf`` in the
+    plain version, the ``-1e30`` sentinel in the kernel.  Slot ids must be
+    equal, except at a near-tie, where the slot the kernel chose must
+    score within ``tol`` of the plain score at that rank."""
+    import torch
+    s_k, i_k = got
+    s_p, i_p = want
+    masked = torch.isneginf(s_p)
+    if not bool((s_k[masked] <= -1e29).all()):
+        raise AssertionError(f"{name}: masked candidate scored as a hit")
+    err = float((s_k[~masked] - s_p[~masked]).abs().max()) \
+        if bool((~masked).any()) else 0.0
+    if err > tol:
+        raise AssertionError(f"{name}: max |score err| {err} > {tol}")
+    diff = i_k != i_p.to(i_k.dtype)
+    if bool(diff.any()):
+        chosen = torch.gather(full, -1, (i_k.long() - offset))
+        gap = float((chosen[diff] - s_p[diff]).abs().max())
+        if not gap <= tol:
+            raise AssertionError(f"{name}: {int(diff.sum())} slot ids differ "
+                                 f"beyond a near-tie (gap {gap})")
+    return err, int(diff.sum())
+
+
+def check_scans(q, slabs, valid, nids, k: int):
+    """K1 and K2 (masked and global) against their plain versions on one
+    set of inputs; returns {kernel: (max |score err|, near-tie swaps)}."""
+    import torch
+
+    from repro_torch.kernels import ref, vdb_topk
+    dev = q.device
+    n_idx, n_nodes, cap, _ = slabs.shape
+    nodes = torch.arange(n_nodes, device=dev)
+    scores = torch.einsum("qd,incd->inqc", q, slabs)
+    out = {"vdb_topk_pernode": check_topk(
+        "vdb_topk_pernode", vdb_topk.launch_pernode(q, slabs, valid, k),
+        ref.vdb_topk_pernode_ref(q, slabs, valid, k),
+        torch.where(valid[None, :, None, :], scores, float("-inf")),
+        (nodes * cap)[None, :, None, None], KERNEL_TOL)}
+    flat = scores.permute(0, 2, 1, 3)                # (P, Q, N, cap)
+    for mask_nodes in (True, False):
+        ok = valid[None, None]
+        if mask_nodes:
+            ok = ok & (nids.long()[None, :, None, None]
+                       == nodes[None, None, :, None])
+        full = torch.where(ok, flat, float("-inf")).reshape(
+            n_idx, q.shape[0], n_nodes * cap)
+        name = "vdb_topk_sharded" + ("" if mask_nodes else "(global)")
+        out[name] = check_topk(
+            name, vdb_topk.launch_sharded(q, slabs, valid, nids, k,
+                                          mask_nodes=mask_nodes),
+            ref.vdb_topk_sharded_ref(q, slabs, valid, nids, k,
+                                     mask_nodes=mask_nodes),
+            full, 0, KERNEL_TOL)
+    torch.cuda.synchronize()
+    return out
+
+
+def run_kernel_checks(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import adaln, flash_attention, ref, vdb_topk
+
+    gen = torch.Generator().manual_seed(0)
+    rows = []
+    k = 8
+    tie = check_scans(*scan_inputs(gen, ties=True, dev=dev), k)
+    q, slabs, valid, nids = scan_inputs(gen, ties=False, dev=dev)
+    rnd = check_scans(q, slabs, valid, nids, k)
+    for case, res in (("exact ties", tie), ("random", rnd)):
+        log(f"[kernels] vdb_topk {case} (node 3 empty): "
+            + ", ".join(f"{n} err {e:.2e} ({d} near-tie swaps)"
+                        for n, (e, d) in res.items())
+            + f"; tol {KERNEL_TOL}")
+    n_idx, n_nodes, cap, d = slabs.shape
+    qn = q.shape[0]
+    flops = 2.0 * qn * n_idx * n_nodes * cap * d
+    base = q.numel() * 4 + slabs.numel() * 4 + valid.numel()
+    b1 = bound(base + n_idx * n_nodes * qn * k * 8, flops)
+    b2 = bound(base + qn * 4 + n_idx * qn * k * 8, flops)
+    shape = f"q ({qn}, {d}), slabs {tuple(slabs.shape)}, k {k}"
+    rows.append(timed(dict(
+        name="vdb_topk_pernode", route="cuda",
+        source="src/repro_torch/kernels/csrc/vdb_topk.cu",
+        replaces="src/repro/kernels/vdb_topk.py:277",
+        max_abs_err=max(rnd["vdb_topk_pernode"][0],
+                        tie["vdb_topk_pernode"][0]),
+        tol=KERNEL_TOL, bound_ms=b1[0], bound_by=b1[1], shape=shape),
+        lambda: vdb_topk.launch_pernode(q, slabs, valid, k),
+        lambda: ref.vdb_topk_pernode_ref(q, slabs, valid, k)))
+    rows.append(timed(dict(
+        name="vdb_topk_sharded", route="cuda",
+        source="src/repro_torch/kernels/csrc/vdb_topk.cu",
+        replaces="src/repro/kernels/vdb_topk.py:209",
+        max_abs_err=max(e for n, (e, _) in list(rnd.items())
+                        + list(tie.items()) if n != "vdb_topk_pernode"),
+        tol=KERNEL_TOL, bound_ms=b2[0], bound_by=b2[1],
+        shape=shape + ", node-masked"),
+        lambda: vdb_topk.launch_sharded(q, slabs, valid, nids, k),
+        lambda: ref.vdb_topk_sharded_ref(q, slabs, valid, nids, k)))
+
+    # K4: q, k, v as the DiT hands them over — strided slices of one
+    # fused (B, T, 3, H, Dh) projection
+    b, t, h, hd = 8, 256, 12, 64
+    qkv = torch.randn((b, t, 3, h, hd), generator=gen).to(dev)
+    qq, kk, vv = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    for sq in (t, 200):                  # 200: a ragged final query tile
+        got = flash_attention.launch(qq[:, :sq], kk[:, :sq], vv[:, :sq])
+        want = ref.flash_attention_ref(qq[:, :sq], kk[:, :sq], vv[:, :sq])
+        err = float((got - want).abs().max())
+        if err > KERNEL_TOL:
+            raise AssertionError(f"flash_attention S={sq}: err {err}")
+    got = flash_attention.launch(qq[:, :100], kk, vv, causal=True)
+    want = ref.flash_attention_ref(qq[:, :100], kk, vv, causal=True)
+    if float((got - want).abs().max()) > KERNEL_TOL:
+        raise AssertionError("flash_attention causal disagrees")
+    e4 = float((flash_attention.launch(qq, kk, vv)
+                - ref.flash_attention_ref(qq, kk, vv)).abs().max())
+    b4 = bound(4 * b * t * h * hd * 4, 4.0 * b * h * t * t * hd)
+    qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
+    rows.append(timed(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:82", max_abs_err=e4,
+        tol=KERNEL_TOL, bound_ms=b4[0], bound_by=b4[1],
+        shape=f"q/k/v ({b}, {t}, {h}, {hd}) strided"),
+        lambda: flash_attention.launch(qq, kk, vv),
+        lambda: ref.flash_attention_ref(qq, kk, vv),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+    log(f"[kernels] flash_attention err {e4:.2e} (also S=200, causal), "
+        f"tol {KERNEL_TOL}")
+
+    # K5: x (B, T, D); shift/scale as chunks of the adaLN projection
+    dm = 768
+    x = (torch.randn((b, t, dm), generator=gen) * 2 + 0.5).to(dev)
+    ada = torch.randn((b, 6 * dm), generator=gen).to(dev)
+    sh, sc = ada[:, :dm], ada[:, dm:2 * dm]
+    t0 = time.perf_counter()
+    got = adaln.launch(x, sh, sc)
+    torch.cuda.synchronize()
+    triton_s = time.perf_counter() - t0
+    e5 = float((got - ref.adaln_modulate_ref(x, sh, sc)).abs().max())
+    if e5 > KERNEL_TOL:
+        raise AssertionError(f"adaln_modulate: err {e5}")
+    b5 = bound((2 * b * t * dm + 2 * b * dm) * 4, 8.0 * b * t * dm)
+    rows.append(timed(dict(
+        name="adaln_modulate", route="triton",
+        source="src/repro_torch/kernels/adaln.py",
+        replaces="src/repro/kernels/adaln.py:31", max_abs_err=e5,
+        tol=KERNEL_TOL, bound_ms=b5[0], bound_by=b5[1],
+        shape=f"x ({b}, {t}, {dm}), shift/scale ({b}, {dm}) strided"),
+        lambda: adaln.launch(x, sh, sc),
+        lambda: ref.adaln_modulate_ref(x, sh, sc)))
+    log(f"[kernels] adaln_modulate err {e5:.2e}, tol {KERNEL_TOL} "
+        f"(first call incl. Triton compile {triton_s:.1f}s)")
+    for r in rows:
+        log(f"[kernels] {r['name']:<17} device {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library "
+            + ("-" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+            + f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}); per "
+            f"eager call {r['call_ms']:.4f} ms, plain "
+            f"{r['plain_call_ms']:.4f} ms  [{r['shape']}]")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3/4: the serving path
+# ---------------------------------------------------------------------------
+
+
+def make_models(dev):
+    import torch
+
+    from repro_torch.models.diffusion.dit import (DiT, DiTConfig,
+                                                  perturb_zero_init_)
+    from repro_torch.models.diffusion.vae import VAE, VAEConfig
+    gen = torch.Generator().manual_seed(0)
+    dit = DiT(DiTConfig(**DIT_B2), generator=gen)
+    perturb_zero_init_(dit, gen)
+    vae = VAE(VAEConfig(**FULL_VAE),
+              generator=torch.Generator().manual_seed(1))
+    return dit.to(dev).eval(), vae.to(dev).eval()
+
+
+def drive(engine, prompts, first_seed: int):
+    """One run of the main path: counts zeroed just before, read just
+    after."""
+    import torch
+
+    from repro_torch import kernels
+    n0 = len(engine.system.stats.batch_wall_latencies)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for i, (p, tier) in enumerate(prompts):
+        engine.submit(p, seed=first_seed + i, quality_tier=tier)
+    done = engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    walls = engine.system.stats.batch_wall_latencies[n0:]
+    return done, counts, wall, walls
+
+
+def stage_p50_ms(done) -> dict:
+    """Median per-stage wall (ms) over a drive's requests."""
+    import numpy as np
+    walls = {}
+    for c in done:
+        for name, w in c.result.stage_walls.items():
+            walls.setdefault(name, []).append(w)
+    return {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
+
+
+def profile_drive(engine, prompts, first_seed: int) -> dict:
+    """One more score-routed drive under ``torch.profiler``: device busy
+    time against wall time, and the kernels that take the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    before = dict(engine.system.stats.route_counts)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        done, _, wall, walls = drive(engine, prompts, first_seed)
+    mix = {k: v - before.get(k, 0)
+           for k, v in engine.system.stats.route_counts.items()
+           if v - before.get(k, 0)}
+    # device-side events only (kernels, copies): an operator's device time
+    # is also its kernels' time, and would count twice
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+    out = dict(wall_ms=wall * 1e3, batch_walls_ms=[w * 1e3 for w in walls],
+               route_mix=mix, stage_p50_ms=stage_p50_ms(done),
+               device_busy_ms=busy_us / 1e3,
+               idle_share=1.0 - busy_us / 1e3 / (wall * 1e3),
+               top=[dict(name=e.key[:90], count=e.count,
+                         device_ms=e.self_device_time_total / 1e3)
+                    for e in top])
+    log(f"[profile] {len(prompts)} requests ({mix}): wall "
+        f"{out['wall_ms']:.0f} ms, device busy {out['device_busy_ms']:.0f} "
+        f"ms, idle share {out['idle_share']:.3f}; stage p50 ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["stage_p50_ms"].items()))
+    for t in out["top"]:
+        log(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
+            f"{t['name']}")
+    torch.cuda.synchronize()
+    return out
+
+
+def run_serve(dev, n_requests: int, profile: bool = False):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.embeddings import ProxyClipEmbedder
+    from repro_torch.core.trace import RequestTrace
+    from repro_torch.data.synthetic import render_caption
+    from repro_torch.launch.serve import build_system
+    from repro_torch.runtime.serving import DiffusionBackend, ServingEngine
+
+    t0 = time.perf_counter()
+    dit, vae = make_models(dev)
+    emb = ProxyClipEmbedder(render_caption)
+    backend = DiffusionBackend(dit, vae, lambda p: emb.embed_text([p])[0],
+                               device=dev)
+    system, _, _, _ = build_system(n_nodes=4, res=SERVE_RES,
+                                   backend=backend, device=dev)
+    engine = ServingEngine(system, max_batch=8)
+    log(f"[serve] build_system(n_nodes=4, res={SERVE_RES}) + dit-b2/full-VAE "
+        f"init {time.perf_counter() - t0:.1f}s; slabs "
+        f"{tuple(system.cluster_index._slabs.shape)}")
+    reqs = [(r.prompt, r.quality_tier)
+            for r in RequestTrace(seed=1).generate(n_requests + 8)]
+    done, counts, wall, walls = drive(engine, reqs[:n_requests], 0)
+    log(f"[serve] score routing: {len(done)} requests in {wall:.2f}s, "
+        f"route mix {system.stats.route_counts}, hit rate "
+        f"{system.stats.hit_rate:.3f}, per-micro-batch wall "
+        + ", ".join(f"{w * 1e3:.0f}ms" for w in walls)
+        + f"; launches {counts}")
+    log("[serve] stage p50 ms: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stage_p50_ms(done).items()))
+    for name in ("vdb_topk_pernode", "flash_attention", "adaln_modulate"):
+        if counts[name] == 0:
+            raise AssertionError(f"score-routed drive never launched {name}")
+    system.routing = "centroid"
+    done2, counts2, wall2, walls2 = drive(
+        engine, reqs[n_requests:n_requests + 8], n_requests)
+    log(f"[serve] centroid routing: {len(done2)} requests in {wall2:.2f}s, "
+        f"per-micro-batch wall "
+        + ", ".join(f"{w * 1e3:.0f}ms" for w in walls2)
+        + f"; launches {counts2}")
+    if counts2["vdb_topk_sharded"] == 0:
+        raise AssertionError("centroid-routed drive never launched "
+                             "vdb_topk_sharded")
+    system.routing = "score"
+    prof = None
+    if profile:      # a fresh trace, so that the drive generates images
+        prof = profile_drive(engine, [(r.prompt, r.quality_tier) for r in
+                                      RequestTrace(seed=2).generate(16)],
+                             1000)
+
+    res = backend.image_res
+    for c in done + done2:
+        img = np.asarray(c.result.image)
+        if img.shape != (res, res, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"bad image {img.shape} for "
+                                 f"{c.request.prompt!r}")
+    launches = {k: counts[k] + counts2[k] for k in counts}
+    summary = dict(
+        requests=len(done) + len(done2), route_mix=system.stats.route_counts,
+        hit_rate=system.stats.hit_rate, score_wall_s=wall,
+        score_batch_walls_s=walls, centroid_wall_s=wall2,
+        centroid_batch_walls_s=walls2, launches_score=counts,
+        launches_centroid=counts2, stage_p50_ms=stage_p50_ms(done),
+        profile=prof)
+    return system, backend, launches, summary
+
+
+def check_against_references(system, backend, dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cluster_index import ClusterIndex
+    from repro_torch.core.trace import RequestTrace
+    from repro_torch.models.diffusion.dit import (DiT, DiTConfig,
+                                                  perturb_zero_init_)
+
+    # retrieval: the card's index (kernels) vs a CPU index over the same
+    # fleet (plain versions) — same candidates per node
+    cpu_ci = ClusterIndex.from_dbs(system.dbs, device="cpu")
+    try:
+        prompts = [r.prompt for r in RequestTrace(seed=5).generate(8)]
+        qv = system.embedder.embed_text(prompts)
+        rows_gpu = system.cluster_index.search_cluster_nodes(qv, system.topk)
+        rows_cpu = cpu_ci.search_cluster_nodes(qv, system.topk)
+        for per_q_g, per_q_c in zip(rows_gpu, rows_cpu):
+            for (s_g, l_g), (s_c, l_c) in zip(per_q_g, per_q_c):
+                if not np.array_equal(l_g, l_c) or not np.allclose(
+                        s_g, s_c, rtol=0, atol=KERNEL_TOL):
+                    raise AssertionError("card scan != CPU scan")
+    finally:
+        for db in system.dbs:
+            db.unregister_cluster(cpu_ci)
+
+    # DiT at full size: kernels vs the plain path, same weights and inputs
+    gen = torch.Generator().manual_seed(3)
+    cfg = backend.dit.cfg
+    x = torch.randn((8, cfg.img_res, cfg.img_res, cfg.in_ch),
+                    generator=gen).to(dev)
+    t = torch.tensor([999, 900, 700, 500, 300, 100, 10, 0], device=dev)
+    ctx = torch.randn((8, cfg.ctx_dim), generator=gen).to(dev)
+    plain = DiT(cfg._replace(use_pallas=False, use_pallas_adaln=False))
+    plain.load_state_dict(backend.dit.state_dict())
+    plain = plain.to(dev).eval()
+    with torch.no_grad():
+        a, b = backend.dit(x, t, ctx), plain(x, t, ctx)
+    rel = float((a - b).abs().max() / b.abs().max())
+    if not rel <= DIT_REL_TOL:
+        raise AssertionError(f"DiT kernels vs plain on the card: rel {rel}")
+    log(f"[check] DiT-B/2 (12 blocks, B=8) kernels vs plain on the card: "
+        f"max err {rel:.2e} of scale (tol {DIT_REL_TOL})")
+
+    # small DiT: the card (kernels) vs the CPU (plain versions)
+    small = DiTConfig(img_res=8, in_ch=4, patch=2, n_layers=2, d_model=768,
+                      n_heads=12, ctx_dim=512)
+    g2 = torch.Generator().manual_seed(4)
+    m_cpu = DiT(small, generator=g2)
+    perturb_zero_init_(m_cpu, g2)
+    m_gpu = DiT(small)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    m_gpu = m_gpu.to(dev).eval()
+    xs = torch.randn((2, 8, 8, 4), generator=g2)
+    ts = torch.tensor([17, 640])
+    cs = torch.randn((2, 512), generator=g2)
+    with torch.no_grad():
+        want = m_cpu.eval()(xs, ts, cs)
+        got = m_gpu(xs.to(dev), ts.to(dev), cs.to(dev)).cpu()
+    rel2 = float((got - want).abs().max() / want.abs().max())
+    if not rel2 <= DIT_REL_TOL:
+        raise AssertionError(f"small DiT card vs CPU: rel {rel2}")
+    log(f"[check] cluster scans match a CPU index; small DiT card vs CPU: "
+        f"max err {rel2:.2e} of scale")
+    return dict(dit_full_rel_err=rel, dit_small_cpu_rel_err=rel2)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--requests", type=int, default=16,
+                    help="requests drained under score routing (8 more "
+                    "follow under centroid routing)")
+    ap.add_argument("--out", default=None,
+                    help="also write every measurement as JSON here")
+    ap.add_argument("--profile", action="store_true",
+                    help="add a score-routed drive of 16 fresh requests "
+                    "under torch.profiler (device busy time, top kernels)")
+    args = ap.parse_args()
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: run it from the root of a checkout "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is false — this "
+              "script needs an NVIDIA GPU", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+
+    t_all = time.perf_counter()
+    card = card_line()
+    log(f"[card] {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    # full f32 everywhere: the kernels are held against f32 plain
+    # versions, and matmul TF32 is already off by default; cuDNN
+    # convolutions would otherwise run the VAE in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[card] TF32 off: torch.backends.cuda.matmul.allow_tf32=False, "
+        "torch.backends.cudnn.allow_tf32=False")
+    t0 = time.perf_counter()
+    secs = _build.build_all()
+    log(f"[build] nvcc sm_90a, in parallel: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+        + f" (wall {time.perf_counter() - t0:.1f}s)")
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rows = run_kernel_checks(dev)
+    system, backend, launches, summary = run_serve(dev, args.requests,
+                                                   profile=args.profile)
+    summary.update(check_against_references(system, backend, dev))
+
+    kernels_line = {"kernels": [
+        {k: r[k] for k in ("name", "route", "source", "replaces")}
+        | {"launches": launches[r["name"]]}
+        | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}
+        for r in rows]}
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            dict(card=card, kernels=rows, launches=launches, serve=summary,
+                 seconds=time.perf_counter() - t_all), indent=1,
+            default=float))
+    log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s")
+    print(card)
+    print(json.dumps(kernels_line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

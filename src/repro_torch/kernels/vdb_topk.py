@@ -1,0 +1,114 @@
+"""Cluster-wide cosine scan + streaming top-k on the card (CUDA C++).
+
+Replaces the TPU kernel ``_vdb_sharded_kernel`` of
+``repro/kernels/vdb_topk.py`` behind its two entry points,
+``vdb_topk_pernode`` (the score-routing scan, one launch per
+micro-batch) and ``vdb_topk_sharded`` (the masked retrieval scan of
+centroid routing).  Source: ``csrc/vdb_topk.cu``; plain versions:
+:func:`repro_torch.kernels.ref.vdb_topk_pernode_ref` and
+:func:`~repro_torch.kernels.ref.vdb_topk_sharded_ref`.
+
+What bounds it on the card: the slab bytes, each row read once per
+launch (memory).  The TPU kernel streams the slab through VMEM on one
+core in grid order; on the GPU the capacity axis is cut into 64-row
+chunks scanned by independent blocks, and a second pass merges the
+chunk lists (see the source for the order it keeps).
+
+Results equal the plain versions': the same slots in the same order
+(score descending, then global slot ascending), scores within f32
+rounding, and masked candidates as the ``-1e30`` sentinel where the
+plain version has ``-inf``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import _build
+
+MAX_K = 32                     # the kernel's top-k limit
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib():
+    lib = _build.library("vdb_topk")
+    if lib.vdb_topk_launch.argtypes is None:
+        lib.vdb_topk_launch.argtypes = [_P] * 8 + [_I] * 8 + [_P]
+        lib.vdb_topk_launch.restype = ctypes.c_int
+        lib.vdb_topk_chunks.argtypes = [_I]
+        lib.vdb_topk_chunks.restype = ctypes.c_int
+    return lib
+
+
+def _check_inputs(queries, slabs, valid, k: int):
+    for name, t in (("queries", queries), ("slabs", slabs), ("valid", valid)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if queries.dtype != torch.float32 or slabs.dtype != torch.float32:
+        raise TypeError("queries and slabs must be float32")
+    if valid.dtype != torch.bool:
+        raise TypeError("valid must be bool")
+    if queries.dim() != 2 or slabs.dim() != 4 or valid.dim() != 2:
+        raise ValueError("expected queries (Q, D), slabs (P, N, cap, D), "
+                         "valid (N, cap)")
+    n_idx, n_nodes, cap, d = slabs.shape
+    if queries.shape[1] != d or tuple(valid.shape) != (n_nodes, cap):
+        raise ValueError(f"shape mismatch: queries {tuple(queries.shape)}, "
+                         f"slabs {tuple(slabs.shape)}, "
+                         f"valid {tuple(valid.shape)}")
+    if d % 4:
+        raise ValueError(f"dim must be a multiple of 4, got {d}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+
+
+def _launch(queries, slabs, valid, node_ids, k: int, *, per_node: bool,
+            mask_nodes: bool):
+    _check_inputs(queries, slabs, valid, k)
+    n_idx, n_nodes, cap, d = slabs.shape
+    qn = queries.shape[0]
+    if k > (cap if per_node else n_nodes * cap):
+        raise ValueError(f"k={k} exceeds the candidates per list")
+    lib = _lib()
+    dev = queries.device
+    chunks = lib.vdb_topk_chunks(cap)
+    part_s = torch.empty((n_idx * n_nodes * chunks * qn * k,),
+                         dtype=torch.float32, device=dev)
+    part_i = torch.empty(part_s.shape, dtype=torch.int32, device=dev)
+    lead = (n_idx, n_nodes) if per_node else (n_idx,)
+    out_s = torch.empty(lead + (qn, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty(lead + (qn, k), dtype=torch.int32, device=dev)
+    if node_ids is None:
+        node_ids = torch.zeros((qn,), dtype=torch.int32, device=dev)
+    else:
+        node_ids = node_ids.to(device=dev, dtype=torch.int32).contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vdb_topk_launch(
+        queries.data_ptr(), slabs.data_ptr(), valid.data_ptr(),
+        node_ids.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), n_idx, n_nodes, cap, d, qn, k,
+        int(per_node), int(mask_nodes), stream)
+    _build.check(err, "vdb_topk")
+    return out_s, out_i
+
+
+def launch_pernode(queries, slabs, valid, k: int):
+    """K1: (scores, global slot ids) of shape (P, N, Q, k)."""
+    out = _launch(queries, slabs, valid, None, k, per_node=True,
+                  mask_nodes=False)
+    kernels.LAUNCHES["vdb_topk_pernode"] += 1
+    return out
+
+
+def launch_sharded(queries, slabs, valid, node_ids, k: int, *,
+                   mask_nodes: bool = True):
+    """K2: (scores, global slot ids) of shape (P, Q, k)."""
+    out = _launch(queries, slabs, valid, node_ids, k, per_node=False,
+                  mask_nodes=mask_nodes)
+    kernels.LAUNCHES["vdb_topk_sharded"] += 1
+    return out

@@ -1,0 +1,217 @@
+"""CacheGenius serving driver on the card — the drain path of the JAX
+package's ``repro/launch/serve.py``.
+
+Builds the edge fleet (N node VDBs via the K-means storage classifier
+over a synthetic reference corpus, the cluster index on ``--device``),
+replays a Zipf request trace through the staged pipeline in FIFO
+micro-batches, and prints the route mix, hit rate, Eq. 8 latency and
+cost against always-full generation, and per-stage wall times.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 300 --nodes 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+Continuous and step-level batching, scripted faults, journals, tenants
+and the sharded index are later slices of the port: their flags are
+accepted and refused with an error.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch.core.embeddings import ProxyClipEmbedder
+from repro_torch.core.latency_model import CostModel, LatencyModel
+from repro_torch.core.lcu import POLICIES
+from repro_torch.core.policy import GenerationPolicy, Route
+from repro_torch.core.storage_classifier import StorageClassifier
+from repro_torch.core.system import CacheGenius, GenerationBackend
+from repro_torch.core.trace import RequestTrace
+from repro_torch.core.vdb import BlobStore
+from repro_torch.data.synthetic import make_corpus, render_caption
+from repro_torch.runtime.serving import ServingEngine
+
+# flags of the JAX CLI that belong to later slices of the port
+_NOT_PORTED = ("continuous", "step_level", "fault_schedule", "journal_dir",
+               "tenants", "arrival_rate", "slot_capacity", "fault_seed")
+
+
+def build_system(*, n_nodes: int = 4, corpus_n: int = 600,
+                 capacity_per_node: int = 400, policy=None,
+                 eviction="LCU", use_scheduler=True,
+                 use_prompt_optimizer=True, backend=None, seed=0,
+                 node_speeds=None, routing: str = "score",
+                 latent_depths=None, mesh_nodes: int = 1, res: int = 32,
+                 device="cuda"):
+    """Assemble the full CacheGenius stack over the synthetic corpus.
+
+    Same arguments and behaviour as the JAX package's ``build_system``,
+    plus ``res``, the corpus resolution (32 there; 256 feeds the
+    full-size VAE), and ``device``, where the K-means fit and the cluster
+    index run."""
+    images, captions, _ = make_corpus(corpus_n, res=res, seed=seed)
+    embedder = ProxyClipEmbedder(render_caption)
+    img_vecs = embedder.embed_image(images)
+    txt_vecs = embedder.embed_text(captions)
+    embedder.set_corpus_anchor(img_vecs)
+
+    blob = BlobStore()
+    payloads = np.array([blob.put(im) for im in images], np.int64)
+    classifier = StorageClassifier(n_nodes, device=device)
+    dbs = classifier.build_node_dbs(img_vecs, txt_vecs, payloads,
+                                    capacity_per_node=capacity_per_node)
+    if backend is None:
+        backend = NullBackend(res=images.shape[1])
+    base_speeds = [1.0, 1.0, 0.82, 0.45]   # 4090D/4090D/3090/2070S
+    speeds = node_speeds or [base_speeds[i % len(base_speeds)]
+                             for i in range(n_nodes)]
+    system = CacheGenius(
+        embedder=embedder, dbs=dbs, blob_store=blob, backend=backend,
+        classifier=classifier, policy=policy or GenerationPolicy(),
+        latency_model=LatencyModel(), cost_model=CostModel(),
+        eviction=POLICIES[eviction], node_speeds=speeds,
+        use_scheduler=use_scheduler,
+        use_prompt_optimizer=use_prompt_optimizer, routing=routing,
+        latent_depths=latent_depths, mesh_nodes=mesh_nodes, device=device)
+    return system, embedder, images, captions
+
+
+class NullBackend(GenerationBackend):
+    """Render-based stand-in backend for routing experiments that need no
+    model.  Deterministic per element (steps/seeds are ignored), so
+    batched and sequential drains stay exactly comparable; the "latent"
+    archived at every depth is the finished image itself."""
+
+    supports_latent_resume = True
+
+    def __init__(self, res: int):
+        super().__init__()
+        self.res = int(res)
+
+    def txt2img_batch(self, prompts, steps, seeds):
+        return np.stack([render_caption(p, res=self.res) for p in prompts])
+
+    def img2img_batch(self, prompts, references, steps, seeds):
+        out = []
+        for p, ref in zip(prompts, references):
+            target = render_caption(p, res=self.res)
+            out.append(0.75 * target
+                       + 0.25 * ref[: target.shape[0], : target.shape[1]])
+        return np.stack(out)
+
+    def archive_latents_batch(self, images, seeds, depths, steps_total):
+        return np.stack([np.asarray(images)] * len(depths))
+
+    def resume_batch(self, prompts, latents, steps_total, k, seeds):
+        return self.img2img_batch(prompts, latents, steps_total - k, seeds)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=300)
+    ap.add_argument("--nodes", type=int, default=4)
+    ap.add_argument("--eviction", default="LCU", choices=sorted(POLICIES))
+    ap.add_argument("--no-scheduler", action="store_true")
+    ap.add_argument("--routing", default="score",
+                    choices=("score", "centroid"),
+                    help="'score' routes on each node's true best composite "
+                    "match from the fused cluster scan; 'centroid' is the "
+                    "Eq. 6 node-representation baseline")
+    ap.add_argument("--no-prompt-optimizer", action="store_true")
+    ap.add_argument("--latent-cache", action="store_true",
+                    help="archive latents alongside finished images "
+                    "(policy default depths)")
+    ap.add_argument("--latent-depths", default=None,
+                    help="comma-separated resume depths (implies "
+                    "--latent-cache)")
+    ap.add_argument("--fail-node", type=int, default=None,
+                    help="kill node N after half the requests")
+    ap.add_argument("--max-batch", "--batch", dest="max_batch", type=int,
+                    default=8, help="engine micro-batch size")
+    ap.add_argument("--device", default="cuda",
+                    help="where the K-means fit and the cluster index run")
+    ap.add_argument("--mesh-nodes", type=int, default=1)
+    for flag in _NOT_PORTED:
+        ap.add_argument("--" + flag.replace("_", "-"), dest=flag,
+                        default=None, nargs="?", const=True,
+                        help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    given = [f for f in _NOT_PORTED if getattr(args, f) is not None]
+    if given:
+        ap.error("--" + given[0].replace("_", "-") + " is not part of the "
+                 "PyTorch port yet (continuous/step-level serving, faults "
+                 "and tenants come in later slices); use the JAX package's "
+                 "repro.launch.serve")
+    if args.mesh_nodes != 1:
+        ap.error("--mesh-nodes > 1 (a sharded cluster index) is not part of "
+                 "the PyTorch port yet")
+    if args.max_batch < 1:
+        ap.error("--max-batch must be >= 1")
+
+    if args.latent_depths is not None:
+        latent_depths = tuple(int(d) for d in args.latent_depths.split(","))
+    elif args.latent_cache:
+        latent_depths = True
+    else:
+        latent_depths = None
+    system, _, _, _ = build_system(
+        n_nodes=args.nodes, eviction=args.eviction,
+        use_scheduler=not args.no_scheduler,
+        use_prompt_optimizer=not args.no_prompt_optimizer,
+        routing=args.routing, latent_depths=latent_depths,
+        device=args.device)
+    engine = ServingEngine(system, max_batch=args.max_batch)
+    reqs = list(RequestTrace(seed=1).generate(args.requests))
+    half = len(reqs) // 2
+    for i, r in enumerate(reqs):
+        if args.fail_node is not None and i == half:
+            print(f"--- failing node {args.fail_node} ---")
+            engine.fail_node(args.fail_node)
+        engine.submit(r.prompt, seed=i, quality_tier=r.quality_tier)
+    done = engine.drain()
+
+    st = system.stats
+    lat = np.array(st.latencies)
+    full_latency = system.latency_model.latency(
+        Route.TXT2IMG, system.policy.steps_full)
+    base_cost = CostModel()
+    for _ in range(st.requests):
+        base_cost.charge(0, system.policy.steps_full
+                         * system.latency_model.t_step)
+    print(f"requests           : {st.requests}")
+    print(f"routing            : {args.routing}"
+          + ("" if not args.no_scheduler else " (scheduler disabled)"))
+    print(f"route mix          : {st.route_counts}")
+    print(f"hit rate           : {st.hit_rate:.3f}")
+    print(f"mean steps/request : {st.mean_steps:.2f}")
+    print(f"mean latency (Eq.8): {lat.mean():.3f}s   "
+          f"p50 {np.percentile(lat, 50):.3f}  p95 {np.percentile(lat, 95):.3f}")
+    wall = np.array(st.wall_latencies)
+    print(f"wall latency       : mean {wall.mean() * 1e3:.2f}ms   "
+          f"p50 {np.percentile(wall, 50) * 1e3:.2f}ms  "
+          f"p95 {np.percentile(wall, 95) * 1e3:.2f}ms  "
+          f"(batch-amortised, max_batch={args.max_batch}, "
+          f"{len(st.batch_wall_latencies)} micro-batches, "
+          f"total {sum(st.batch_wall_latencies):.2f}s)")
+    print(f"vs always-full     : {full_latency:.3f}s  "
+          f"(reduction {100 * (1 - lat.mean() / full_latency):.1f}%)")
+    cost = system.cost_model.total_cost()
+    base = base_cost.total_cost()
+    print(f"cost               : ${cost:.4f} vs ${base:.4f} "
+          f"(reduction {100 * (1 - cost / max(base, 1e-12)):.1f}%)")
+    qd = np.array([c.queue_delay for c in done])
+    print(f"queue delay        : mean {qd.mean() * 1e3:.2f}ms   "
+          f"p50 {np.percentile(qd, 50) * 1e3:.2f}ms  "
+          f"p95 {np.percentile(qd, 95) * 1e3:.2f}ms  (drain path)")
+    walls = {}
+    for c in done:
+        for name, w in c.result.stage_walls.items():
+            walls.setdefault(name, []).append(w)
+    print("stage walls        : " + "  ".join(
+        f"{name} {np.percentile(v, 50) * 1e3:.1f}/"
+        f"{np.percentile(v, 95) * 1e3:.1f}ms" for name, v in walls.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

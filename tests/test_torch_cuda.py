@@ -1,0 +1,104 @@
+"""The port's hand-written kernels against their plain versions on the
+card, at shapes the smoke run does not cover (ragged tiles, k at its
+limits, other head dims).  Marked ``cuda``: they skip without a GPU.
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance 2e-5 (f32 against f32, TF32 off); slot ids equal (the inputs
+are integer-valued, so every score and every tie is exact)."""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import adaln, flash_attention, ops, ref, vdb_topk
+
+pytestmark = pytest.mark.cuda
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _scan_case(dev, qn, nodes, cap, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    slabs = torch.randint(-2, 3, (2, nodes, cap, d), generator=g).float()
+    slabs[:, :, cap // 2:] = slabs[:, :, :cap - cap // 2]   # exact ties
+    q = torch.randint(-2, 3, (qn, d), generator=g).float()
+    valid = torch.rand((nodes, cap), generator=g) < 0.6
+    valid[0] = False                                        # empty node
+    nids = torch.randint(0, nodes, (qn,), generator=g, dtype=torch.int32)
+    return [t.to(dev) for t in (q, slabs, valid, nids)]
+
+
+def _same_topk(got, want):
+    s_k, i_k = got
+    s_p, i_p = want
+    masked = torch.isneginf(s_p)
+    assert bool((s_k[masked] <= -1e29).all())
+    torch.testing.assert_close(s_k[~masked], s_p[~masked], **TOL)
+    assert torch.equal(i_k, i_p)
+
+
+@pytest.mark.parametrize("qn,nodes,cap,d,k", [
+    (1, 1, 1, 4, 1), (8, 4, 400, 512, 8), (17, 3, 130, 64, 32),
+    (40, 2, 64, 128, 5)])
+def test_vdb_topk_kernels_match_plain(dev, qn, nodes, cap, d, k):
+    q, slabs, valid, nids = _scan_case(dev, qn, nodes, cap, d, qn + cap)
+    _same_topk(vdb_topk.launch_pernode(q, slabs, valid, k),
+               ref.vdb_topk_pernode_ref(q, slabs, valid, k))
+    for mask in (True, False):
+        _same_topk(vdb_topk.launch_sharded(q, slabs, valid, nids, k,
+                                           mask_nodes=mask),
+                   ref.vdb_topk_sharded_ref(q, slabs, valid, nids, k,
+                                            mask_nodes=mask))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (1, 1, 1, 1, 32), (2, 65, 65, 3, 64), (1, 100, 300, 2, 128),
+    (8, 256, 256, 12, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_matches_plain(dev, b, sq, sk, h, d, causal):
+    g = torch.Generator().manual_seed(sq * 7 + d)
+    q, k, v = (torch.randn((b, n, h, d), generator=g).to(dev)
+               for n in (sq, sk, sk))
+    torch.testing.assert_close(flash_attention.launch(q, k, v, causal=causal),
+                               ref.flash_attention_ref(q, k, v,
+                                                       causal=causal), **TOL)
+
+
+@pytest.mark.parametrize("b,t,d", [(1, 1, 4), (3, 77, 100), (8, 256, 768),
+                                   (2, 16, 1536)])
+def test_adaln_matches_plain(dev, b, t, d):
+    g = torch.Generator().manual_seed(t + d)
+    x = (torch.randn((b, t, d), generator=g) * 3 + 1).to(dev)
+    ada = torch.randn((b, 2 * d), generator=g).to(dev)
+    torch.testing.assert_close(adaln.launch(x, ada[:, :d], ada[:, d:]),
+                               ref.adaln_modulate_ref(x, ada[:, :d],
+                                                      ada[:, d:]), **TOL)
+
+
+def test_wrappers_count_launches_and_refuse_bad_input(dev):
+    kernels.reset_launches()
+    x = torch.randn((2, 8, 1, 64), device=dev)
+    ops.flash_attention(x, x, x)
+    ops.adaln_modulate(x[:, :, 0], x[:, 0, 0], x[:, 1, 0])
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    assert kernels.LAUNCHES["adaln_modulate"] == 1
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(x[..., :48], x[..., :48], x[..., :48])
+    with pytest.raises(TypeError):
+        ops.adaln_modulate(x[:, :, 0].double(), x[:, 0, 0], x[:, 1, 0])
+    q = torch.randn((2, 16), device=dev)
+    slabs = torch.randn((2, 1, 8, 16), device=dev)
+    valid = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="k must be"):
+        ops.vdb_topk_pernode(q, slabs, valid, 33)
+    assert kernels.LAUNCHES["vdb_topk_pernode"] == 0
