@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CacheGenius on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--requests 16] [--out results.json]
+    python3 chip_smoke.py [--requests 8] [--out results.json] [--profile]
 
 Run from the root of a checkout.  Phases, one status line each; any
 failure exits nonzero (nothing is caught):
@@ -10,23 +10,38 @@ failure exits nonzero (nothing is caught):
    (``nvidia-smi``), fix the TF32 flags, build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
    source, all at once).
-2. kernels — each kernel of the serving path against its plain PyTorch
-   version on the same inputs on the card, at the main path's shapes:
-   the cluster scans (K1 per node, K2 masked/global) at Q=8 queries,
-   4 nodes x 400 slots x 512 dims, k=8, with a random case, an exact-tie
-   case and an empty node; flash attention (K4) and fused adaLN (K5) at
-   DiT-B/2 shapes, batch 8.  Prints error, tolerance, kernel / plain /
-   library milliseconds and the bound.
+2. kernels — each of the six kernels against its plain PyTorch version
+   on the same inputs on the card, at the main paths' shapes: the
+   cluster scans (K1 per node, K2 masked/global) at Q=8 queries, 4 nodes
+   x 400 slots x 512 dims, k=8, with a random case, an exact-tie case and
+   an empty node; the single-slab scan (K3) at q (8, 512), db (400, 512),
+   random, exact ties and every slot invalid; flash attention (K4) and
+   fused adaLN (K5) at DiT-B/2 shapes, batch 8; GroupNorm+SiLU (K6) at
+   every resblock shape of the 256 px VAE at B=8 and B=1, plus the
+   group shrink rule.  Prints error, tolerance, kernel / plain / library
+   milliseconds and the bound.
 3. serve — ``build_system(n_nodes=4, res=256)`` over a dit-b2-width DiT
    (12 layers, 768 wide, 12 heads, patch 2, 256 tokens) and the full f8
    VAE at 256 px, random seeded weights; ``ServingEngine(max_batch=8)``
-   drains the trace under score routing, then a few more requests under
-   centroid routing.  Launch counts are zeroed right before each drive
-   and read right after; a kernel of the path with no launch fails.
+   drains the trace under score routing, then 8 more requests under
+   centroid routing.
+3b. latent-depth step-level serving — ``build_system(n_nodes=4,
+   corpus_n=48, res=256, latent_depths=True)`` with the same backend,
+   warmed with latents of a few scenes (see ``warm_latents``);
+   ``ServingEngine.run`` over Poisson arrivals (50/s) of
+   ``mixed_hit_trace(24, seed=3)`` at step level with 8 slots, then the
+   same arrivals group-continuous on a fresh, identical system.
+3c. standalone fleet — the serve phase's fleet reassembled without a
+   cluster index (``use_cluster_index=False``): 8 requests, every
+   Retrieve through K3.
+   Launch counts are zeroed right before each drive of 3-3c and read
+   right after; a kernel of a drive's path with no launch fails.
 4. check — outputs are finite images of the right shape; the cluster
-   scans agree with a CPU index over the same fleet; the DiT with its
-   kernels agrees with the plain DiT on the card at full size and with
-   the plain DiT on the CPU at a small size.
+   scans and the standalone scans agree with CPU copies of the fleet;
+   step level and group-continuous agree on routes, nodes, steps and
+   cache state, images within a stated tolerance; the DiT and the VAE
+   with their kernels agree with their plain versions on the card at
+   full size and with the CPU at a small size.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -35,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -55,6 +71,16 @@ KERNEL_TOL = 2e-5
 # differences compound through the residual stream; relative to the
 # output's largest magnitude
 DIT_REL_TOL = 1e-4
+# a VAE pass (kernels vs plain, or card vs CPU): per-resblock rounding of
+# the statistics and the convolutions, relative to the output's scale
+VAE_REL_TOL = 1e-4
+# step-level vs group-continuous images: the DiT runs at batch 8 (slots)
+# against batches of 1-8 (groups), and a GEMM picks its algorithm by batch
+# size, so sums round differently through up to 30 DDIM steps and a VAE
+# decode; relative to the image's largest magnitude
+IMAGE_REL_TOL = 1e-3
+# scenes warmed with archived latents before the latent-depth drive
+LATENT_WARM_SCENES = 6
 
 # dit-b2 at 256 px (src/repro/configs/dit_b2.py) over the full f8 VAE
 # (FULL_VAE in src/repro/configs/diffusion_common.py)
@@ -62,6 +88,9 @@ DIT_B2 = dict(img_res=32, in_ch=4, patch=2, n_layers=12, d_model=768,
               n_heads=12, ctx_dim=512)
 FULL_VAE = dict(in_ch=3, base_ch=128, ch_mult=(1, 2, 4), z_ch=4, n_res=2)
 SERVE_RES = 256          # corpus and generated images, px
+# (H = W, C) of the full VAE's resblocks at 256 px: encode, then decode
+VAE_RESBLOCK_SHAPES = ((128, 128), (64, 256), (32, 512),
+                       (64, 512), (128, 256), (256, 128))
 
 
 def log(msg: str) -> None:
@@ -320,6 +349,8 @@ def run_kernel_checks(dev):
         lambda: ref.adaln_modulate_ref(x, sh, sc)))
     log(f"[kernels] adaln_modulate err {e5:.2e}, tol {KERNEL_TOL} "
         f"(first call incl. Triton compile {triton_s:.1f}s)")
+    rows.append(check_single_scan(gen, dev, k))
+    rows.append(check_groupnorm_silu(gen, dev))
     for r in rows:
         log(f"[kernels] {r['name']:<17} device {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  library "
@@ -328,6 +359,136 @@ def run_kernel_checks(dev):
             f"eager call {r['call_ms']:.4f} ms, plain "
             f"{r['plain_call_ms']:.4f} ms  [{r['shape']}]")
     return rows
+
+
+def single_scan_inputs(gen, case: str, dev):
+    """K3 at a standalone node's size: q (8, 512), db (400, 512).
+    ``ties``: integer rows, rows 200-299 repeating rows 0-99; ``empty``:
+    every slot invalid (a node that just joined)."""
+    import torch
+    if case == "ties":
+        db = torch.randint(-1, 2, (400, 512), generator=gen).float()
+        db[200:300] = db[0:100]
+        q = torch.randint(-1, 2, (8, 512), generator=gen).float()
+    else:
+        db = torch.randn((400, 512), generator=gen)
+        db /= db.norm(dim=-1, keepdim=True)
+        q = torch.randn((8, 512), generator=gen)
+        q /= q.norm(dim=-1, keepdim=True)
+    valid = torch.rand((400,), generator=gen) < 0.7
+    if case == "empty":
+        valid[:] = False
+    return [t.to(dev) for t in (q, db, valid)]
+
+
+def check_single_scan(gen, dev, k: int) -> dict:
+    """K3 against its plain version in three cases; times the random
+    one."""
+    import torch
+
+    from repro_torch.kernels import ref, vdb_topk
+    errs = {}
+    for case in ("ties", "empty", "random"):
+        q, db, valid = single_scan_inputs(gen, case, dev)
+        full = torch.where(valid[None], q @ db.T, float("-inf"))
+        errs[case] = check_topk(f"vdb_topk {case}",
+                                vdb_topk.launch_single(q, db, valid, k),
+                                ref.vdb_topk_ref(q, db, valid, k), full, 0,
+                                KERNEL_TOL)
+    torch.cuda.synchronize()
+    log("[kernels] vdb_topk (single slab) " + ", ".join(
+        f"{c} err {e:.2e} ({d} near-tie swaps)" for c, (e, d) in errs.items())
+        + f"; tol {KERNEL_TOL}")
+    qn, d = q.shape
+    b3 = bound(q.numel() * 4 + db.numel() * 4 + valid.numel() + qn * k * 8,
+               2.0 * qn * db.shape[0] * d)
+    return timed(dict(
+        name="vdb_topk", route="cuda",
+        source="src/repro_torch/kernels/csrc/vdb_topk.cu",
+        replaces="src/repro/kernels/vdb_topk.py:120",
+        max_abs_err=max(e for e, _ in errs.values()), tol=KERNEL_TOL,
+        bound_ms=b3[0], bound_by=b3[1],
+        shape=f"q ({qn}, {d}), db {tuple(db.shape)}, k {k}, one index"),
+        lambda: vdb_topk.launch_single(q, db, valid, k),
+        lambda: ref.vdb_topk_ref(q, db, valid, k))
+
+
+def gn_bound(x):
+    """K6 bound: one read and one write of x; ~10 operations per element
+    (statistics, normalise, affine, SiLU)."""
+    return bound(2 * x.numel() * 4 + 2 * x.shape[-1] * 4, 10.0 * x.numel())
+
+
+def check_groupnorm_silu(gen, dev) -> dict:
+    """K6 at every resblock shape of the 256 px VAE (three per encode,
+    three per decode), at B=8 and B=1, plus the shrink rule (C=48: 24
+    groups) and groups=8.  Every case against the plain version; device
+    ms of kernel, plain and the library yardstick at each resblock shape.
+    The row reported is the largest, (8, 256, 256, 128)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import groupnorm_silu, ref
+    per_shape = []
+    row = None
+    for b in (8, 1):
+        for hw, c in VAE_RESBLOCK_SHAPES:
+            x = (torch.randn((b, hw, hw, c), generator=gen) * 2 + 0.5).to(dev)
+            sc = (torch.randn((c,), generator=gen) * 0.3 + 1).to(dev)
+            bi = (torch.randn((c,), generator=gen) * 0.3).to(dev)
+            got = groupnorm_silu.launch(x, sc, bi)
+            err = float((got - ref.groupnorm_silu_ref(x, sc, bi))
+                        .abs().max())
+            if err > KERNEL_TOL:
+                raise AssertionError(f"groupnorm_silu {tuple(x.shape)}: "
+                                     f"err {err}")
+            g = groupnorm_silu.num_groups(c, 32)
+            xc = x.permute(0, 3, 1, 2)      # the NCHW view, channels last
+            bd = gn_bound(x)
+            r = timed(dict(shape=tuple(x.shape), max_abs_err=err,
+                           bound_ms=bd[0], bound_by=bd[1]),
+                      lambda: groupnorm_silu.launch(x, sc, bi),
+                      lambda: ref.groupnorm_silu_ref(x, sc, bi),
+                      lambda: F.silu(F.group_norm(xc, g, sc, bi, 1e-5)))
+            per_shape.append(r)
+            if row is None or x.numel() > math.prod(row["shape"]):
+                row = r
+                again = groupnorm_silu.launch(x, sc, bi)
+                alone = groupnorm_silu.launch(x[-1:].contiguous(), sc, bi)
+                if not (torch.equal(again, got)
+                        and torch.equal(alone, got[-1:])):
+                    raise AssertionError("groupnorm_silu: bits differ "
+                                         "between runs or batch sizes")
+            del x, got, xc
+    for shape, groups in (((1, 32, 32, 48), 32), ((2, 64, 64, 64), 8)):
+        x = torch.randn(shape, generator=gen).to(dev)
+        sc = torch.randn((shape[-1],), generator=gen).to(dev)
+        bi = torch.randn((shape[-1],), generator=gen).to(dev)
+        err = float((groupnorm_silu.launch(x, sc, bi, groups=groups)
+                     - ref.groupnorm_silu_ref(x, sc, bi, groups=groups))
+                    .abs().max())
+        if err > KERNEL_TOL:
+            raise AssertionError(f"groupnorm_silu {shape} groups={groups}: "
+                                 f"err {err}")
+        per_shape.append(dict(shape=shape, groups=groups, max_abs_err=err))
+    torch.cuda.synchronize()
+    for r in per_shape:
+        log(f"[kernels] groupnorm_silu {str(r['shape']):<22} err "
+            f"{r['max_abs_err']:.2e}" + ("" if "ms" not in r else
+            f"  device {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  "
+            f"library(F.group_norm+F.silu) {r['library_ms']:.4f}  bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}); eager "
+            f"{r['call_ms']:.4f} / {r['plain_call_ms']:.4f}"))
+    log("[kernels] groupnorm_silu: same bits on a second run and for an "
+        f"image alone; tol {KERNEL_TOL}")
+    row.update(name="groupnorm_silu", route="cuda",
+               source="src/repro_torch/kernels/csrc/groupnorm_silu.cu",
+               replaces="src/repro/kernels/groupnorm_silu.py:36",
+               max_abs_err=max(r["max_abs_err"] for r in per_shape),
+               tol=KERNEL_TOL, per_shape=[dict(r) for r in per_shape],
+               shape=f"{row['shape']} NHWC, "
+               f"{groupnorm_silu.num_groups(row['shape'][-1], 32)} groups")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -379,17 +540,18 @@ def stage_p50_ms(done) -> dict:
     return {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
 
 
-def profile_drive(engine, prompts, first_seed: int) -> dict:
-    """One more score-routed drive under ``torch.profiler``: device busy
-    time against wall time, and the kernels that take the device time."""
+def profile_drive(label: str, system, run) -> dict:
+    """One more drive under ``torch.profiler``: device busy time against
+    wall time, and the kernels that take the device time.  ``run()``
+    drives ``system`` and returns ``(done, wall_seconds)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    before = dict(engine.system.stats.route_counts)
+    before = dict(system.stats.route_counts)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        done, _, wall, walls = drive(engine, prompts, first_seed)
+        done, wall = run()
     mix = {k: v - before.get(k, 0)
-           for k, v in engine.system.stats.route_counts.items()
+           for k, v in system.stats.route_counts.items()
            if v - before.get(k, 0)}
     # device-side events only (kernels, copies): an operator's device time
     # is also its kernels' time, and would count twice
@@ -398,14 +560,14 @@ def profile_drive(engine, prompts, first_seed: int) -> dict:
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
-    out = dict(wall_ms=wall * 1e3, batch_walls_ms=[w * 1e3 for w in walls],
-               route_mix=mix, stage_p50_ms=stage_p50_ms(done),
+    out = dict(wall_ms=wall * 1e3, route_mix=mix,
+               stage_p50_ms=stage_p50_ms(done),
                device_busy_ms=busy_us / 1e3,
                idle_share=1.0 - busy_us / 1e3 / (wall * 1e3),
                top=[dict(name=e.key[:90], count=e.count,
                          device_ms=e.self_device_time_total / 1e3)
                     for e in top])
-    log(f"[profile] {len(prompts)} requests ({mix}): wall "
+    log(f"[profile] {label}: {len(done)} requests ({mix}): wall "
         f"{out['wall_ms']:.0f} ms, device busy {out['device_busy_ms']:.0f} "
         f"ms, idle share {out['idle_share']:.3f}; stage p50 ms "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["stage_p50_ms"].items()))
@@ -463,9 +625,11 @@ def run_serve(dev, n_requests: int, profile: bool = False):
     system.routing = "score"
     prof = None
     if profile:      # a fresh trace, so that the drive generates images
-        prof = profile_drive(engine, [(r.prompt, r.quality_tier) for r in
-                                      RequestTrace(seed=2).generate(16)],
-                             1000)
+        fresh = [(r.prompt, r.quality_tier)
+                 for r in RequestTrace(seed=2).generate(16)]
+        prof = profile_drive(   # [::2] keeps (done, wall)
+            "drain, score routing", system,
+            lambda: drive(engine, fresh, 1000)[::2])
 
     res = backend.image_res
     for c in done + done2:
@@ -482,6 +646,276 @@ def run_serve(dev, n_requests: int, profile: bool = False):
         launches_centroid=counts2, stage_p50_ms=stage_p50_ms(done),
         profile=prof)
     return system, backend, launches, summary
+
+
+def drive_run(engine, arrivals, **kw):
+    """One ``ServingEngine.run`` of the main path: counts zeroed just
+    before, read just after."""
+    import torch
+
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.run(arrivals, **kw)
+    torch.cuda.synchronize()
+    return done, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def warm_latents(system, reqs, n_scenes: int) -> None:
+    """Set-up of the latent-depth drive.  Random weights generate images
+    that no later prompt matches, so nothing the drive archives could be
+    resumed.  Instead the fleet first archives, through the backend's own
+    archive path (VAE encode and noised latents), rendered images of a
+    colour-swapped variant of each of the trace's first ``n_scenes``
+    scenes; then the finished images are evicted, as the LCU sweep's
+    per-depth discount does under pressure, leaving their latents.  A
+    request that matches such a scene resumes from a latent."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import (COLORS, SceneSpec, caption_of,
+                                            render_caption)
+    colors = list(COLORS)
+    specs = []
+    for r in reqs:
+        if not r.is_repeat and r.spec not in specs:
+            specs.append(r.spec)
+    res = system.backend.image_res
+    first = len(system.blob_store)
+    for j, sp in enumerate(specs[:n_scenes]):
+        c = colors[(colors.index(sp.color) + 1) % len(colors)]
+        prompt = caption_of(SceneSpec(sp.shape, c, sp.background, sp.size,
+                                      sp.position))
+        img = render_caption(prompt, res=res)
+        node = int(system.classifier.assign(
+            system.embedder.embed_image(img[None]))[0])
+        system._archive(prompt, system.embedder.embed_text([prompt])[0],
+                        img, node, t=0.0, seed=10_000 + j)
+    gone = []
+    for db in system.dbs:
+        fin = np.flatnonzero(db.valid & (db.depth < 0)
+                             & (db.payload_ids >= first))
+        if len(fin):
+            gone += [int(p) for p in db.evict_slots(fin)]
+    for pid in gone:
+        system.blob_store.delete(pid)
+    system.scheduler.invalidate_payloads(gone)
+
+
+def latent_system(backend, dev, reqs):
+    from repro_torch.launch.serve import build_system
+    system, _, _, _ = build_system(n_nodes=4, corpus_n=48, res=SERVE_RES,
+                                   backend=backend, latent_depths=True,
+                                   device=dev)
+    warm_latents(system, reqs, LATENT_WARM_SCENES)
+    return system
+
+
+def cache_state(system):
+    """What batching must never change: discrete cache state and stats."""
+    return dict(
+        valid=[db.valid.tolist() for db in system.dbs],
+        payloads=[db.payload_ids.tolist() for db in system.dbs],
+        depth=[db.depth.tolist() for db in system.dbs],
+        source=[db.source_id.tolist() for db in system.dbs],
+        blobs=len(system.blob_store), routes=dict(system.stats.route_counts),
+        latent_resumes=system.stats.latent_resumes,
+        total_steps=system.stats.total_steps)
+
+
+def run_latent_step_level(dev, backend, profile: bool = False):
+    """Phase 3b: latent-depth serving at step level, then the same
+    arrivals group-continuous on a fresh, identical system; both are
+    main-path drives.  ``profile`` repeats the step-level drive on a
+    third identical system under the profiler."""
+    import numpy as np
+
+    from repro_torch.core.trace import mixed_hit_trace, poisson_arrivals
+    from repro_torch.runtime.serving import ServingEngine
+    reqs = mixed_hit_trace(24, seed=3)
+    arrivals = poisson_arrivals(reqs, 50.0)
+    t0 = time.perf_counter()
+    s_stp = latent_system(backend, dev, reqs)
+    s_grp = latent_system(backend, dev, reqs)
+    log(f"[latent] two build_system(n_nodes=4, corpus_n=48, res="
+        f"{SERVE_RES}, latent_depths={s_stp.latent_depths}) + "
+        f"{LATENT_WARM_SCENES} warmed scenes: {time.perf_counter() - t0:.1f}s")
+    eng = ServingEngine(s_stp, max_batch=8)
+    d_stp, c_stp, w_stp = drive_run(eng, arrivals, step_level=True,
+                                    slot_capacity=8)
+    occ = eng.slot_occupancy
+    log(f"[latent] step level: {len(d_stp)} requests in {w_stp:.2f}s, "
+        f"{len(occ)} steps, occupancy p50 {np.percentile(occ, 50):.0f} "
+        f"p95 {np.percentile(occ, 95):.0f} of 8; route mix "
+        f"{s_stp.stats.route_counts}, latent resumes "
+        f"{s_stp.stats.latent_resumes}, steps {s_stp.stats.total_steps}; "
+        f"launches {c_stp}")
+    for name in ("groupnorm_silu", "flash_attention", "adaln_modulate",
+                 "vdb_topk_pernode"):
+        if c_stp[name] == 0:
+            raise AssertionError(f"step-level drive never launched {name}")
+    if s_stp.stats.latent_resumes == 0:
+        raise AssertionError("step-level drive resumed no latent")
+    d_grp, c_grp, w_grp = drive_run(ServingEngine(s_grp, max_batch=8),
+                                    arrivals)
+    log(f"[latent] group-continuous: {len(d_grp)} requests in {w_grp:.2f}s;"
+        f" launches {c_grp}")
+
+    # what batching never changes: equal; images: within IMAGE_REL_TOL
+    for a, b in zip(d_stp, d_grp):
+        ra, rb = a.result, b.result
+        if ((ra.fast_path, ra.route, ra.node, ra.steps, ra.resumed_from)
+                != (rb.fast_path, rb.route, rb.node, rb.steps,
+                    rb.resumed_from)):
+            raise AssertionError(f"step level != group for "
+                                 f"{a.request.prompt!r}")
+    if cache_state(s_stp) != cache_state(s_grp):
+        raise AssertionError("step level and group left different caches")
+    res = backend.image_res
+    rel = 0.0
+    for a, b in zip(d_stp, d_grp):
+        ia, ib = np.asarray(a.result.image), np.asarray(b.result.image)
+        if ia.shape != (res, res, 3) or not np.isfinite(ia).all():
+            raise AssertionError(f"bad image {ia.shape}")
+        rel = max(rel, float(np.abs(ia - ib).max()
+                             / max(np.abs(ib).max(), 1e-12)))
+    if not rel <= IMAGE_REL_TOL:
+        raise AssertionError(f"step-level images vs group: rel {rel}")
+    log(f"[check] step level == group-continuous: routes, nodes, steps, "
+        f"resume depths and cache state equal; images max err {rel:.2e} of "
+        f"scale (tol {IMAGE_REL_TOL})")
+    prof = None
+    if profile:
+        s_prof = latent_system(backend, dev, reqs)
+        eng = ServingEngine(s_prof, max_batch=8)
+        prof = profile_drive(
+            "latent-depth step level", s_prof,
+            lambda: drive_run(eng, arrivals, step_level=True,
+                              slot_capacity=8)[::2])
+    return (c_stp, c_grp), dict(profile=prof,
+        step_wall_s=w_stp, group_wall_s=w_grp, steps=len(occ),
+        occupancy=occ, route_mix=s_stp.stats.route_counts,
+        latent_resumes=s_stp.stats.latent_resumes,
+        total_steps=s_stp.stats.total_steps, image_rel_err=rel,
+        launches_step=c_stp, launches_group=c_grp)
+
+
+def run_standalone(system, dev):
+    """Phase 3c: the serve drive's fleet reassembled without a cluster
+    index (one pgvector per node, the paper's design): every Retrieve
+    scans each node's own db through K3.  Its rows must equal a CPU
+    fleet's."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.system import CacheGenius
+    from repro_torch.core.trace import RequestTrace
+    from repro_torch.core.vdb import VectorDB
+    from repro_torch.runtime.serving import ServingEngine
+    for db in system.dbs:
+        db.unregister_cluster(system.cluster_index)
+    fleet = CacheGenius(
+        embedder=system.embedder, dbs=system.dbs,
+        blob_store=system.blob_store, backend=system.backend,
+        classifier=system.classifier, policy=system.policy,
+        latency_model=system.latency_model, cost_model=system.cost_model,
+        eviction=system.eviction,
+        node_speeds=[n.speed for n in system.scheduler.nodes],
+        use_cluster_index=False, device=dev)
+    engine = ServingEngine(fleet, max_batch=8)
+    reqs = [(r.prompt, r.quality_tier)
+            for r in RequestTrace(seed=4).generate(8)]
+    done, counts, wall, walls = drive(engine, reqs, 5000)
+    log(f"[standalone] {len(done)} requests in {wall:.2f}s (no cluster "
+        f"index, centroid routing), route mix {fleet.stats.route_counts}; "
+        f"launches {counts}")
+    if counts["vdb_topk"] == 0:
+        raise AssertionError("standalone fleet never launched vdb_topk")
+    if counts["vdb_topk_pernode"] or counts["vdb_topk_sharded"]:
+        raise AssertionError("standalone fleet launched a cluster scan")
+    # Retrieve rows on the card (K3) == a CPU copy of each db (plain)
+    q = fleet.embedder.embed_text(
+        [r.prompt for r in RequestTrace(seed=6).generate(8)])
+    n0 = dict(kernels.LAUNCHES)
+    for db in fleet.dbs:
+        cpu = VectorDB.restore(db.dim, db.capacity, db.snapshot(),
+                               device="cpu")
+        for (s_g, l_g), (s_c, l_c) in zip(db.search_batch(q, fleet.topk),
+                                          cpu.search_batch(q, fleet.topk)):
+            if not np.array_equal(l_g, l_c) or not np.allclose(
+                    s_g, s_c, rtol=0, atol=KERNEL_TOL):
+                raise AssertionError("standalone card scan != CPU scan")
+    torch.cuda.synchronize()
+    log(f"[check] standalone Retrieve rows on the card match a CPU fleet "
+        f"({dict(kernels.LAUNCHES)['vdb_topk'] - n0['vdb_topk']} K3 "
+        f"launches compared)")
+
+    # host clock per call: the per-call upload of one db's slab (both
+    # indexes and the mask, from pageable host memory) against a whole
+    # standalone search_batch of 8 queries
+    db = fleet.dbs[0]
+
+    def per_call_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    upload_ms = per_call_ms(lambda: [torch.from_numpy(a).to(dev) for a in (
+        db.img_vecs, db.txt_vecs, db.valid)])
+    search_ms = per_call_ms(lambda: db.search_batch(q, fleet.topk))
+    log(f"[standalone] per call (host clock): slab upload {upload_ms:.3f} ms "
+        f"({(db.img_vecs.nbytes * 2 + db.valid.nbytes) / 1e6:.2f} MB), "
+        f"search_batch of 8 queries {search_ms:.3f} ms")
+    return counts, dict(wall_s=wall, batch_walls_s=walls,
+                        route_mix=fleet.stats.route_counts,
+                        launches=counts, upload_ms=upload_ms,
+                        search_batch_ms=search_ms)
+
+
+def check_vaes(backend, dev) -> dict:
+    """The full VAE with K6 against the plain VAE on the card, and a small
+    VAE on the card against the CPU."""
+    import torch
+
+    from repro_torch.models.diffusion.vae import VAE, VAEConfig
+    gen = torch.Generator().manual_seed(7)
+    plain = VAE(backend.vae.cfg, use_pallas=False)
+    plain.load_state_dict(backend.vae.state_dict())
+    plain = plain.to(dev).eval()
+    img = (torch.rand((2, SERVE_RES, SERVE_RES, 3), generator=gen) * 2
+           - 1).to(dev)
+    z = torch.randn((2, SERVE_RES // 8, SERVE_RES // 8, 4),
+                    generator=gen).to(dev)
+    out = {}
+    with torch.no_grad():
+        for name, a, b in (
+                ("encode", backend.vae.encode(img)[0], plain.encode(img)[0]),
+                ("decode", backend.vae.decode(z), plain.decode(z))):
+            out[f"vae_full_{name}_rel_err"] = float(
+                (a - b).abs().max() / b.abs().max())
+        small = VAE(VAEConfig(in_ch=3, base_ch=32, ch_mult=(1, 2), z_ch=4,
+                              n_res=1), generator=gen).eval()
+        s_gpu = VAE(small.cfg)
+        s_gpu.load_state_dict(small.state_dict())
+        s_gpu = s_gpu.to(dev).eval()
+        x = torch.rand((2, 32, 32, 3), generator=gen) * 2 - 1
+        want = small.decode(small.encode(x)[0])
+        got = s_gpu.decode(s_gpu.encode(x.to(dev))[0]).cpu()
+        out["vae_small_cpu_rel_err"] = float(
+            (got - want).abs().max() / want.abs().max())
+    for k_, v in out.items():
+        if not v <= VAE_REL_TOL:
+            raise AssertionError(f"{k_} = {v} > {VAE_REL_TOL}")
+    log("[check] VAE with K6 vs plain on the card (B=2, 256 px): encode "
+        f"{out['vae_full_encode_rel_err']:.2e}, decode "
+        f"{out['vae_full_decode_rel_err']:.2e}; small VAE card vs CPU "
+        f"{out['vae_small_cpu_rel_err']:.2e} (of scale; tol {VAE_REL_TOL})")
+    return out
 
 
 def check_against_references(system, backend, dev):
@@ -553,14 +987,15 @@ def check_against_references(system, backend, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--requests", type=int, default=16,
+    ap.add_argument("--requests", type=int, default=8,
                     help="requests drained under score routing (8 more "
                     "follow under centroid routing)")
     ap.add_argument("--out", default=None,
                     help="also write every measurement as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="add a score-routed drive of 16 fresh requests "
-                    "under torch.profiler (device busy time, top kernels)")
+                    help="add a score-routed drain of 16 fresh requests "
+                    "and a repeat of the step-level drive under "
+                    "torch.profiler (device busy time, top kernels)")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout "
@@ -601,6 +1036,15 @@ def main() -> int:
     system, backend, launches, summary = run_serve(dev, args.requests,
                                                    profile=args.profile)
     summary.update(check_against_references(system, backend, dev))
+    summary.update(check_vaes(backend, dev))
+    counts, summary["latent"] = run_latent_step_level(
+        dev, backend, profile=args.profile)
+    c_alone, summary["standalone"] = run_standalone(system, dev)
+    for c in counts + (c_alone,):
+        launches = {k: launches.get(k, 0) + c[k] for k in c}
+    for r in rows:
+        if launches[r["name"]] == 0:
+            raise AssertionError(f"no main-path drive launched {r['name']}")
 
     kernels_line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
@@ -613,7 +1057,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             dict(card=card, kernels=rows, launches=launches, serve=summary,
                  seconds=time.perf_counter() - t_all), indent=1,
-            default=float))
+            default=lambda o: o.item() if hasattr(o, "item") else str(o)))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s")
     print(card)
     print(json.dumps(kernels_line))

@@ -65,12 +65,14 @@ class StorageClassifier:
                        payload_ids: np.ndarray, *, capacity_per_node: int,
                        use_pallas: bool = True, t0: float = 0.0,
                        ) -> List[VectorDB]:
-        """Fit + materialise the per-node VDBs (data-preprocessing phase)."""
+        """Fit + materialise the per-node VDBs (data-preprocessing phase);
+        a standalone db scans on the classifier's device."""
         assignment = self.fit(img_vecs, txt_vecs)
         dbs = []
         for ni in range(self.n_nodes):
             db = VectorDB(img_vecs.shape[-1], capacity_per_node,
-                          name=f"node{ni}", use_pallas=use_pallas)
+                          name=f"node{ni}", use_pallas=use_pallas,
+                          device=self.device)
             sel = np.flatnonzero(assignment == ni)
             if sel.size:
                 # Respect capacity at build time; the LCU policy maintains it after.

@@ -405,7 +405,7 @@ class CacheGenius:
         old = self.dbs[node]
         old.detach_journal()
         fresh = VectorDB(old.dim, old.capacity, name=old.name,
-                         use_pallas=old.use_pallas)
+                         use_pallas=old.use_pallas, device=old.device)
         if self.cluster_index is not None:
             old.unregister_cluster(self.cluster_index)
         self.dbs[node] = fresh
@@ -475,7 +475,7 @@ class CacheGenius:
             raise ValueError(f"capacity must be >= 1, got {cap}")
         node = len(self.dbs)
         db = VectorDB(ref.dim, cap, name=f"node{node}",
-                      use_pallas=ref.use_pallas)
+                      use_pallas=ref.use_pallas, device=ref.device)
         self.dbs.append(db)
         self.scheduler.add_node(speed=speed)
         self.cache_capacity += cap

@@ -13,9 +13,11 @@ storage classifier.  A db registered with a
 over the cluster's device-resident stacked slabs — every ``add``/``evict``
 pushes an incremental row update, and ``search``/``search_batch``
 delegate to the fused cross-node scan (the CUDA kernels on the card).
-A standalone db (no cluster) searches its host arrays with the plain
-PyTorch scan on the CPU: the single-slab TPU kernel (``vdb_topk``) is not
-part of this slice of the port.
+A standalone db (no cluster) uploads its host slab to its ``device`` per
+call and scans it once per index, through the single-slab kernel
+(``ops.vdb_topk``: the CUDA kernel on the card, the plain version on the
+CPU) when ``use_pallas`` is set, else through the plain scan on that
+device.
 
 ``payload_ids`` are opaque ints pointing into a :class:`BlobStore` (the
 paper's NFS layer).
@@ -28,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import vdb_topk_ref
 
 # The CUDA kernel uses a large-negative sentinel instead of -inf; treat
@@ -95,15 +98,6 @@ class BlobStore:
         return sum(b.nbytes for b in self._blobs.values())
 
 
-def _masked_topk_batch(queries: np.ndarray, db: np.ndarray,
-                      valid: np.ndarray, k: int):
-    """Cosine top-k of host ``queries`` (Q, d) against ``db`` (cap, d)
-    under ``valid`` — the plain scan on the CPU, as numpy."""
-    s, i = vdb_topk_ref(torch.from_numpy(queries), torch.from_numpy(db),
-                        torch.from_numpy(valid), k)
-    return s.numpy(), i.numpy()
-
-
 def _l2n(x: np.ndarray) -> np.ndarray:
     n = np.linalg.norm(x, axis=-1, keepdims=True)
     return x / np.maximum(n, 1e-12)
@@ -148,14 +142,16 @@ class VectorDB:
     """Fixed-capacity dual-index vector DB for one edge node."""
 
     def __init__(self, dim: int, capacity: int, *, name: str = "node",
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, device="cuda"):
         self.dim = dim
         self.capacity = capacity
         self.name = name
-        # the cluster index built over this db runs its scans through the
-        # CUDA kernels (True, the port's default; the JAX package defaults
-        # to False) or the plain PyTorch scan on the card (False)
+        # scans run through the CUDA kernels (True, the port's default;
+        # the JAX package defaults to False) or the plain PyTorch scan
+        # (False): a cluster index built over this db follows this flag,
+        # and a standalone db scans on ``device``
         self.use_pallas = use_pallas
+        self.device = torch.device(device)
         self.img_vecs = np.zeros((capacity, dim), np.float32)
         self.txt_vecs = np.zeros((capacity, dim), np.float32)
         self.valid = np.zeros((capacity,), bool)
@@ -327,11 +323,7 @@ class VectorDB:
             cluster, node = self._clusters[-1]
             return cluster.search_batch(q[None], [node], k, index=index,
                                         count_queries=False)[0]
-        out = []
-        for vecs, name in ((self.img_vecs, "img"), (self.txt_vecs, "txt")):
-            if index in (name, "both"):
-                sc, sl = _masked_topk_batch(q[None], vecs, self.valid, k)
-                out.append((sc[0], sl[0]))
+        out = [(s[0], i[0]) for s, i in self._scan(q[None], k, index)]
         return _union_topk([o[0] for o in out], [o[1] for o in out])
 
     def search_batch(self, query_vecs: np.ndarray, k: int,
@@ -342,8 +334,8 @@ class VectorDB:
 
         When this db is a ClusterIndex view the scan runs against the
         device-resident stacked slab (no host→device copies).  Standalone,
-        it is one (Q, cap) masked matmul + top-k per index on the host
-        (:func:`_masked_topk_batch`).
+        it is one scan of the whole (Q, D) query block per index on
+        ``device`` (:meth:`_scan`).
 
         Returns one ``(scores, slots)`` pair per query, each identical in
         meaning to :meth:`search` (deduped union across indexes, invalid
@@ -358,15 +350,30 @@ class VectorDB:
             cluster, node = self._clusters[-1]
             return cluster.search_batch(Q, [node] * b, min(k, self.capacity),
                                         index=index, count_queries=False)
-        Qn = _l2n(Q)
-        k = min(k, self.capacity)
-        per_index = []
-        for vecs, name in ((self.img_vecs, "img"), (self.txt_vecs, "txt")):
-            if index in (name, "both"):
-                per_index.append(_masked_topk_batch(Qn, vecs, self.valid, k))
+        per_index = self._scan(_l2n(Q), min(k, self.capacity), index)
         return [_union_topk([s[row] for s, _ in per_index],
                             [i[row] for _, i in per_index])
                 for row in range(b)]
+
+    def _scan(self, queries: np.ndarray, k: int, index: str,
+              ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Masked cosine top-k of L2-normalised host ``queries`` (Q, d)
+        against each selected index of the host slab, on ``device``: the
+        queries, the validity mask and each index's rows are uploaded
+        (once per call) and scanned by the single-slab kernel
+        (``use_pallas``) or the plain scan.  Returns one
+        ``(scores, slots)`` pair of (Q, k) host arrays per index, img
+        before txt."""
+        dev = self.device
+        scan = ops.vdb_topk if self.use_pallas else vdb_topk_ref
+        q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
+        valid = torch.from_numpy(self.valid).to(dev)
+        out = []
+        for vecs, name in ((self.img_vecs, "img"), (self.txt_vecs, "txt")):
+            if index in (name, "both"):
+                s, i = scan(q, torch.from_numpy(vecs).to(dev), valid, k)
+                out.append((s.cpu().numpy(), i.cpu().numpy()))
+        return out
 
     # -- stats -------------------------------------------------------------
 
@@ -406,6 +413,8 @@ class VectorDB:
 
     @classmethod
     def restore(cls, dim: int, capacity: int, state: dict, **kw) -> "VectorDB":
+        """A db holding a :meth:`snapshot`; ``kw`` are the constructor's
+        (``name``, ``use_pallas``, ``device``)."""
         db = cls(dim, capacity, **kw)
         for k_, v in state.items():
             setattr(db, k_, v.copy())

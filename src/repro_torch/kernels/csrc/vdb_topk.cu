@@ -1,11 +1,15 @@
-// Cluster-wide cosine scan with streaming top-k, for Hopper (sm_90a).
+// Cosine scan with streaming top-k, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel body `_vdb_sharded_kernel` of
-// repro/kernels/vdb_topk.py, behind both of its entry points:
+// Replaces the Pallas TPU kernel bodies `_vdb_sharded_kernel` and
+// `_vdb_kernel` of repro/kernels/vdb_topk.py, behind their three entry
+// points:
 //   PER_NODE = true   -> vdb_topk_pernode  (top-k of every node, per query)
 //   PER_NODE = false  -> vdb_topk_sharded  (one top-k per plane across all
 //                        nodes; MASK_NODES restricts query q to the slab of
 //                        node node_ids[q])
+//   vdb_topk_single_launch -> vdb_topk (one slab, one index): the per-node
+//                        scan of one plane and one node, whose global slot
+//                        ids are then the db's row ids
 //
 // Inputs: queries (Q, D) f32; slabs (P, N, cap, D) f32; valid (N, cap)
 // bool; node_ids (Q,) int32.  Outputs: scores and GLOBAL slot ids
@@ -271,6 +275,17 @@ int vdb_topk_launch(const float* q, const float* slabs, const uint8_t* valid,
   return launch<false, false>(q, slabs, valid, node_ids, part_s, part_i,
                               out_s, out_i, n_planes, n_nodes, cap, dim, n_q,
                               k, stream);
+}
+
+// Single-slab scan (K3): db (n, dim) and valid (n,) are one plane of one
+// node, so the scratch lists hold vdb_topk_chunks(n) * n_q * k entries and
+// the outputs are (n_q, k) with row ids in [0, n).  No node mask.
+int vdb_topk_single_launch(const float* q, const float* db,
+                           const uint8_t* valid, float* part_s, int* part_i,
+                           float* out_s, int* out_i, int n, int dim, int n_q,
+                           int k, cudaStream_t stream) {
+  return launch<true, false>(q, db, valid, nullptr, part_s, part_i, out_s,
+                             out_i, 1, 1, n, dim, n_q, k, stream);
 }
 
 }  // extern "C"

@@ -18,6 +18,14 @@ def _on_cpu(t) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def vdb_topk(queries, db, valid, k: int):
+    """(Q, k) single-slab top-k; see ``ref.vdb_topk_ref``."""
+    if _on_cpu(queries):
+        return ref.vdb_topk_ref(queries, db, valid, k)
+    from repro_torch.kernels import vdb_topk as scan
+    return scan.launch_single(queries, db, valid, k)
+
+
 def vdb_topk_pernode(queries, slabs, valid, k: int):
     """(n_idx, nodes, Q, k) per-node top-k; see ``ref.vdb_topk_pernode_ref``."""
     if _on_cpu(queries):
@@ -51,3 +59,12 @@ def adaln_modulate(x, shift, scale):
         return ref.adaln_modulate_ref(x, shift, scale)
     from repro_torch.kernels import adaln
     return adaln.launch(x, shift, scale)
+
+
+def groupnorm_silu(x, scale, bias, *, groups: int = 32, eps: float = 1e-5):
+    """silu(groupnorm(x)·scale + bias) over NHWC; see
+    ``ref.groupnorm_silu_ref``."""
+    if _on_cpu(x):
+        return ref.groupnorm_silu_ref(x, scale, bias, groups=groups, eps=eps)
+    from repro_torch.kernels import groupnorm_silu as gn
+    return gn.launch(x, scale, bias, groups=groups, eps=eps)

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.common.layers import groupnorm
+
 
 def _topk(scores: torch.Tensor, k: int):
     s, i = torch.sort(scores, dim=-1, descending=True, stable=True)
@@ -84,3 +86,11 @@ def adaln_modulate_ref(x, shift, scale, *, eps: float = 1e-5):
     xn = (x - mean) * torch.rsqrt(var + eps)
     y = xn * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
     return y.to(dtype)
+
+
+def groupnorm_silu_ref(x, scale, bias, *, groups: int = 32,
+                       eps: float = 1e-5):
+    """silu(groupnorm(x) * scale + bias); x: (B, H, W, C) NHWC, scale/bias
+    (C,).  Group statistics in f32 over (H, W, C/G), two-pass; the group
+    count shrinks until it divides C."""
+    return F.silu(groupnorm(x, scale, bias, groups=groups, eps=eps))

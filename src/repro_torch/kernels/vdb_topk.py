@@ -1,18 +1,24 @@
-"""Cluster-wide cosine scan + streaming top-k on the card (CUDA C++).
+"""Cosine scans + streaming top-k on the card (CUDA C++).
 
-Replaces the TPU kernel ``_vdb_sharded_kernel`` of
-``repro/kernels/vdb_topk.py`` behind its two entry points,
-``vdb_topk_pernode`` (the score-routing scan, one launch per
-micro-batch) and ``vdb_topk_sharded`` (the masked retrieval scan of
-centroid routing).  Source: ``csrc/vdb_topk.cu``; plain versions:
-:func:`repro_torch.kernels.ref.vdb_topk_pernode_ref` and
-:func:`~repro_torch.kernels.ref.vdb_topk_sharded_ref`.
+Replaces the TPU kernels of ``repro/kernels/vdb_topk.py``:
+``_vdb_sharded_kernel`` behind its two entry points,
+``vdb_topk_pernode`` (K1, the score-routing scan, one launch per
+micro-batch) and ``vdb_topk_sharded`` (K2, the masked retrieval scan of
+centroid routing), and ``_vdb_kernel`` behind ``vdb_topk`` (K3, the
+single-slab scan of a standalone ``VectorDB``, once per index).  Source:
+``csrc/vdb_topk.cu``, one template for all three (K3 is its per-node
+scan over one plane and one node); plain versions:
+:func:`repro_torch.kernels.ref.vdb_topk_pernode_ref`,
+:func:`~repro_torch.kernels.ref.vdb_topk_sharded_ref` and
+:func:`~repro_torch.kernels.ref.vdb_topk_ref`.
 
 What bounds it on the card: the slab bytes, each row read once per
-launch (memory).  The TPU kernel streams the slab through VMEM on one
-core in grid order; on the GPU the capacity axis is cut into 64-row
-chunks scanned by independent blocks, and a second pass merges the
-chunk lists (see the source for the order it keeps).
+launch (memory).  K3 at a standalone node's size (400 x 512 f32, 0.82
+MB) has a bound of about 0.25 us, so it is latency bound: two short
+launches.  The TPU kernel streams the slab through VMEM on one core in
+grid order; on the GPU the capacity axis is cut into 64-row chunks
+scanned by independent blocks, and a second pass merges the chunk lists
+(see the source for the order it keeps).
 
 Results equal the plain versions': the same slots in the same order
 (score descending, then global slot ascending), scores within f32
@@ -40,6 +46,8 @@ def _lib():
         lib.vdb_topk_launch.restype = ctypes.c_int
         lib.vdb_topk_chunks.argtypes = [_I]
         lib.vdb_topk_chunks.restype = ctypes.c_int
+        lib.vdb_topk_single_launch.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+        lib.vdb_topk_single_launch.restype = ctypes.c_int
     return lib
 
 
@@ -112,3 +120,31 @@ def launch_sharded(queries, slabs, valid, node_ids, k: int, *,
                   mask_nodes=mask_nodes)
     kernels.LAUNCHES["vdb_topk_sharded"] += 1
     return out
+
+
+def launch_single(queries, db, valid, k: int):
+    """K3: queries (Q, D), db (N, D) float32, valid (N,) bool, all
+    contiguous CUDA tensors -> (scores, row ids) of shape (Q, k), ordered
+    by score descending, then row ascending; masked rows score -1e30."""
+    if db.dim() != 2 or valid.dim() != 1:
+        raise ValueError("expected db (N, D) and valid (N,)")
+    _check_inputs(queries, db[None, None], valid[None], k)
+    n, d = db.shape
+    qn = queries.shape[0]
+    if k > n:
+        raise ValueError(f"k={k} exceeds the db's {n} rows")
+    lib = _lib()
+    dev = queries.device
+    chunks = lib.vdb_topk_chunks(n)
+    part_s = torch.empty((chunks * qn * k,), dtype=torch.float32, device=dev)
+    part_i = torch.empty(part_s.shape, dtype=torch.int32, device=dev)
+    out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vdb_topk_single_launch(
+        queries.data_ptr(), db.data_ptr(), valid.data_ptr(),
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr(), n, d, qn, k, stream)
+    _build.check(err, "vdb_topk")
+    kernels.LAUNCHES["vdb_topk"] += 1
+    return out_s, out_i

@@ -1,18 +1,22 @@
-"""CacheGenius serving driver on the card — the drain path of the JAX
+"""CacheGenius serving CLI on the card — the port of the JAX
 package's ``repro/launch/serve.py``.
 
 Builds the edge fleet (N node VDBs via the K-means storage classifier
 over a synthetic reference corpus, the cluster index on ``--device``),
-replays a Zipf request trace through the staged pipeline in FIFO
-micro-batches, and prints the route mix, hit rate, Eq. 8 latency and
-cost against always-full generation, and per-stage wall times.
+replays a Zipf request trace through the staged pipeline — drained in
+FIFO micro-batches, or with ``--continuous`` as a Poisson arrival
+process (``ServingEngine.run``), at step granularity with
+``--step-level`` — and prints the route mix, hit rate, Eq. 8 latency and
+cost against always-full generation, queue delay and per-stage wall
+times.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 300 --nodes 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --continuous --arrival-rate 50 --step-level --slot-capacity 8
 
-Continuous and step-level batching, scripted faults, journals, tenants
-and the sharded index are later slices of the port: their flags are
-accepted and refused with an error.
+Scripted faults, journals, tenants and the sharded index are later
+slices of the port: their flags are accepted and refused with an error.
 """
 from __future__ import annotations
 
@@ -26,14 +30,13 @@ from repro_torch.core.lcu import POLICIES
 from repro_torch.core.policy import GenerationPolicy, Route
 from repro_torch.core.storage_classifier import StorageClassifier
 from repro_torch.core.system import CacheGenius, GenerationBackend
-from repro_torch.core.trace import RequestTrace
+from repro_torch.core.trace import RequestTrace, poisson_arrivals
 from repro_torch.core.vdb import BlobStore
 from repro_torch.data.synthetic import make_corpus, render_caption
 from repro_torch.runtime.serving import ServingEngine
 
 # flags of the JAX CLI that belong to later slices of the port
-_NOT_PORTED = ("continuous", "step_level", "fault_schedule", "journal_dir",
-               "tenants", "arrival_rate", "slot_capacity", "fault_seed")
+_NOT_PORTED = ("fault_schedule", "fault_seed", "journal_dir", "tenants")
 
 
 def build_system(*, n_nodes: int = 4, corpus_n: int = 600,
@@ -128,8 +131,23 @@ def main(argv=None) -> int:
                     help="kill node N after half the requests")
     ap.add_argument("--max-batch", "--batch", dest="max_batch", type=int,
                     default=8, help="engine micro-batch size")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over a Poisson arrival "
+                    "process (ServingEngine.run) instead of the "
+                    "submit-everything-then-drain loop")
+    ap.add_argument("--arrival-rate", type=float, default=50.0,
+                    help="offered load for --continuous, requests/second "
+                    "on the virtual serving clock")
+    ap.add_argument("--step-level", action="store_true",
+                    help="with --continuous: admit arrivals at any "
+                    "denoising-step boundary through a slot engine; prints "
+                    "slot-occupancy p50/p95")
+    ap.add_argument("--slot-capacity", type=int, default=None,
+                    help="slot-buffer capacity for --step-level "
+                    "(default: --max-batch)")
     ap.add_argument("--device", default="cuda",
-                    help="where the K-means fit and the cluster index run")
+                    help="where the K-means fit, the cluster index and "
+                    "the node dbs' scans run")
     ap.add_argument("--mesh-nodes", type=int, default=1)
     for flag in _NOT_PORTED:
         ap.add_argument("--" + flag.replace("_", "-"), dest=flag,
@@ -139,14 +157,21 @@ def main(argv=None) -> int:
     given = [f for f in _NOT_PORTED if getattr(args, f) is not None]
     if given:
         ap.error("--" + given[0].replace("_", "-") + " is not part of the "
-                 "PyTorch port yet (continuous/step-level serving, faults "
-                 "and tenants come in later slices); use the JAX package's "
-                 "repro.launch.serve")
+                 "PyTorch port yet (faults, journals and tenants come in "
+                 "later slices); use the JAX package's repro.launch.serve")
     if args.mesh_nodes != 1:
         ap.error("--mesh-nodes > 1 (a sharded cluster index) is not part of "
                  "the PyTorch port yet")
     if args.max_batch < 1:
         ap.error("--max-batch must be >= 1")
+    if args.arrival_rate <= 0:
+        ap.error("--arrival-rate must be > 0")
+    if args.step_level and not args.continuous:
+        ap.error("--step-level requires --continuous")
+    if args.slot_capacity is not None and not args.step_level:
+        ap.error("--slot-capacity requires --step-level")
+    if args.slot_capacity is not None and args.slot_capacity < 1:
+        ap.error("--slot-capacity must be >= 1")
 
     if args.latent_depths is not None:
         latent_depths = tuple(int(d) for d in args.latent_depths.split(","))
@@ -163,12 +188,32 @@ def main(argv=None) -> int:
     engine = ServingEngine(system, max_batch=args.max_batch)
     reqs = list(RequestTrace(seed=1).generate(args.requests))
     half = len(reqs) // 2
-    for i, r in enumerate(reqs):
-        if args.fail_node is not None and i == half:
+    occupancy = []
+    if args.continuous:
+        arrivals = poisson_arrivals(reqs, args.arrival_rate, seed=1)
+        step_kw = (dict(step_level=True, slot_capacity=args.slot_capacity)
+                   if args.step_level else {})
+        if args.fail_node is not None:
+            done = engine.run(arrivals[:half], **step_kw)
+            occupancy += engine.slot_occupancy
             print(f"--- failing node {args.fail_node} ---")
             engine.fail_node(args.fail_node)
-        engine.submit(r.prompt, seed=i, quality_tier=r.quality_tier)
-    done = engine.drain()
+            # resume on the same timeline: backlog carries over
+            done += engine.run(
+                arrivals[half:],
+                start=max((c.finished_at for c in done), default=0.0),
+                **step_kw)
+            occupancy += engine.slot_occupancy
+        else:
+            done = engine.run(arrivals, **step_kw)
+            occupancy = list(engine.slot_occupancy)
+    else:
+        for i, r in enumerate(reqs):
+            if args.fail_node is not None and i == half:
+                print(f"--- failing node {args.fail_node} ---")
+                engine.fail_node(args.fail_node)
+            engine.submit(r.prompt, seed=i, quality_tier=r.quality_tier)
+        done = engine.drain()
 
     st = system.stats
     lat = np.array(st.latencies)
@@ -183,7 +228,9 @@ def main(argv=None) -> int:
           + ("" if not args.no_scheduler else " (scheduler disabled)"))
     print(f"route mix          : {st.route_counts}")
     print(f"hit rate           : {st.hit_rate:.3f}")
-    print(f"mean steps/request : {st.mean_steps:.2f}")
+    print(f"mean steps/request : {st.mean_steps:.2f}"
+          + (f"   (latent resumes: {st.latent_resumes}, depths "
+             f"{system.latent_depths})" if system.latent_depths else ""))
     print(f"mean latency (Eq.8): {lat.mean():.3f}s   "
           f"p50 {np.percentile(lat, 50):.3f}  p95 {np.percentile(lat, 95):.3f}")
     wall = np.array(st.wall_latencies)
@@ -200,9 +247,19 @@ def main(argv=None) -> int:
     print(f"cost               : ${cost:.4f} vs ${base:.4f} "
           f"(reduction {100 * (1 - cost / max(base, 1e-12)):.1f}%)")
     qd = np.array([c.queue_delay for c in done])
+    mode = (f"continuous, {args.arrival_rate:g} req/s offered"
+            if args.continuous else "drain path, actual wait")
+    if args.step_level:
+        mode = "step-level " + mode
     print(f"queue delay        : mean {qd.mean() * 1e3:.2f}ms   "
           f"p50 {np.percentile(qd, 50) * 1e3:.2f}ms  "
-          f"p95 {np.percentile(qd, 95) * 1e3:.2f}ms  (drain path)")
+          f"p95 {np.percentile(qd, 95) * 1e3:.2f}ms  ({mode})")
+    if args.step_level and occupancy:
+        occ = np.array(occupancy)
+        cap = args.slot_capacity or args.max_batch
+        print(f"slot occupancy     : p50 {np.percentile(occ, 50):.0f}  "
+              f"p95 {np.percentile(occ, 95):.0f}  of {cap} slots  "
+              f"({len(occ)} step launches)")
     walls = {}
     for c in done:
         for name, w in c.result.stage_walls.items():

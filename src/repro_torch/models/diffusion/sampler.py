@@ -1,9 +1,11 @@
-"""DDIM (Eq. 3) and the SDEdit start (Eq. 4) — the subset of the JAX
-package's ``repro/models/diffusion/sampler.py`` the serving path runs.
+"""DDIM (Eq. 3), the SDEdit start (Eq. 4), the latent-depth resume and
+the ragged slot step — the subset of the JAX package's
+``repro/models/diffusion/sampler.py`` the serving path runs.
 
 The JAX sampler runs the step loop under ``lax.scan``; here it is a
-Python loop (PyTorch runs eagerly).  ``ddim_timesteps`` stays host
-numpy, as in the JAX package.
+Python loop (PyTorch runs eagerly), shared by every chain through
+:func:`_ddim_scan`.  ``ddim_timesteps`` stays host numpy, as in the JAX
+package.
 """
 from typing import Callable, Optional
 
@@ -27,10 +29,55 @@ def ddim_step(sched: DiffusionSchedule, x, eps, t: int, t_prev: int):
     ab_t = sched.alphas_bar[t]
     ab_p = (sched.alphas_bar[t_prev] if t_prev >= 0
             else torch.ones((), dtype=ab_t.dtype, device=ab_t.device))
+    return _ddim_update(x, eps, ab_t, ab_p)
+
+
+def _ddim_update(x, eps, ab_t, ab_p):
+    """Eq. 3 from the alpha-bars at ``t`` and at the next timestep
+    (scalars, or per-element tensors broadcast over the latent axes)."""
     x0_pred = (x - torch.sqrt(1.0 - ab_t) * eps) / torch.sqrt(ab_t)
     x0_pred = x0_pred.clamp(-4.0, 4.0)
     dir_xt = torch.sqrt(torch.clamp(1.0 - ab_p, min=0.0)) * eps
     return torch.sqrt(ab_p) * x0_pred + dir_xt
+
+
+def ddim_step_slots(sched: DiffusionSchedule, x, eps, t, t_prev):
+    """One DDIM update with PER-ELEMENT timesteps: ``t`` and ``t_prev``
+    are (B,) int tensors, so every batch element can sit at a different
+    point of a different-length chain.  Same arithmetic as
+    :func:`ddim_step`; ``t_prev < 0`` marks an element's last update
+    (alpha-bar 1)."""
+    shape = (-1,) + (1,) * (x.dim() - 1)
+    t, t_prev = t.long(), t_prev.long()
+    ab_t = sched.alphas_bar[t].reshape(shape)
+    ab_p = torch.where(t_prev >= 0, sched.alphas_bar[t_prev.clamp(min=0)],
+                       torch.ones((), dtype=ab_t.dtype, device=ab_t.device))
+    return _ddim_update(x, eps, ab_t, ab_p.reshape(shape))
+
+
+def step_slots(eps_fn: Callable, sched: DiffusionSchedule, x, ctx, t,
+               t_prev, active):
+    """ONE denoising step over a ragged slot buffer: ``x`` (S, ...) the
+    slot latents, ``ctx`` their conditioning, ``t``/``t_prev`` (S,) each
+    slot's own timesteps and ``active`` an (S,) bool mask.  Every slot
+    runs through the network; inactive slots come back unchanged."""
+    eps = eps_fn(x, t, ctx)
+    x_new = ddim_step_slots(sched, x, eps, t, t_prev).float()
+    mask = active.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(mask, x_new, x)
+
+
+def _ddim_scan(eps_fn: Callable, sched: DiffusionSchedule, x, ctx, ts):
+    """The shared DDIM step loop over an explicit descending timestep
+    vector, whether the chain is full, truncated (SDEdit) or resumed
+    mid-way (the latent-depth cache)."""
+    ts_prev = list(ts[1:]) + [-1]
+    b = x.shape[0]
+    for t, t_prev in zip(ts, ts_prev):
+        t_b = torch.full((b,), int(t), dtype=torch.int32, device=x.device)
+        eps = eps_fn(x, t_b, ctx)
+        x = ddim_step(sched, x, eps, int(t), int(t_prev)).float()
+    return x
 
 
 def ddim_sample(eps_fn: Callable, sched: DiffusionSchedule, shape, ctx, *,
@@ -45,14 +92,8 @@ def ddim_sample(eps_fn: Callable, sched: DiffusionSchedule, shape, ctx, *,
         x = torch.randn(shape, generator=generator, device=ctx.device)
     else:
         x = x_init
-    ts = ddim_timesteps(sched.T, steps, t_start=t_start)
-    ts_prev = list(ts[1:]) + [-1]
-    b = x.shape[0]
-    for t, t_prev in zip(ts, ts_prev):
-        t_b = torch.full((b,), int(t), dtype=torch.int32, device=x.device)
-        eps = eps_fn(x, t_b, ctx)
-        x = ddim_step(sched, x, eps, int(t), int(t_prev)).float()
-    return x
+    return _ddim_scan(eps_fn, sched, x, ctx,
+                      ddim_timesteps(sched.T, steps, t_start=t_start))
 
 
 def sdedit_start(sched: DiffusionSchedule, reference, noise, *,
@@ -66,3 +107,24 @@ def sdedit_start(sched: DiffusionSchedule, reference, noise, *,
                    device=reference.device)
     x_init = sched.q_sample(reference.float(), t, noise)
     return x_init.float(), int(strength * sched.T)
+
+
+def resume_noise_levels(sched: DiffusionSchedule, *, steps: int,
+                        strength: float):
+    """Forward-noise level (schedule timestep) of each depth of the
+    truncated img2img chain — the latent-depth cache's archive map.
+    Level 0 is :func:`sdedit_start`'s ``strength·(T-1)``, so a depth-0
+    resume replays the full img2img chain; level k >= 1 is ``ts[k]``."""
+    ts = ddim_timesteps(sched.T, steps, t_start=int(strength * sched.T))
+    return ([int(strength * (sched.T - 1))]
+            + [int(ts[k]) for k in range(1, steps)])
+
+
+def resume_sample(eps_fn: Callable, sched: DiffusionSchedule, latent, ctx,
+                  *, steps: int, k: int, strength: float = 0.6):
+    """Run the last ``steps - k`` updates of the ``steps``-step img2img
+    chain from an archived latent noised to
+    ``resume_noise_levels(...)[k]``; ``k == 0`` is the full img2img
+    chain from the SDEdit initial state."""
+    ts = ddim_timesteps(sched.T, steps, t_start=int(strength * sched.T))
+    return _ddim_scan(eps_fn, sched, latent.float(), ctx, ts[k:])

@@ -7,8 +7,11 @@ as in the JAX package; the convolutions see channels-last views.
 Submodule names mirror the JAX parameter tree (``enc.stage0.res1.conv2``
 ...), so :mod:`repro_torch.convert` maps one onto the other by name.
 
-GroupNorm+SiLU stays plain PyTorch in this slice: the serving backend
-calls the VAE without the TPU's ``groupnorm_silu`` kernel.
+``use_pallas`` keeps the JAX name and, as in the port's DiT, defaults to
+True: every resblock's two GroupNorm+SiLU activations go through
+:func:`repro_torch.kernels.ops.groupnorm_silu` (the hand-written kernel
+on the card, the plain version on CPU tensors).  The output norm before
+``to_moments`` / ``to_img`` stays plain, as in the JAX package.
 """
 from typing import NamedTuple
 
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import layers as L
 
 
@@ -32,45 +36,54 @@ class VAEConfig(NamedTuple):
 
 
 class ResBlock(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, *, use_pallas: bool = True):
         super().__init__()
+        self.use_pallas = use_pallas
         self.norm1 = L.GroupNorm(in_ch)
         self.conv1 = L.Conv(in_ch, out_ch, 3)
         self.norm2 = L.GroupNorm(out_ch)
         self.conv2 = L.Conv(out_ch, out_ch, 3)
         self.skip = L.Conv(in_ch, out_ch, 1) if in_ch != out_ch else None
 
+    def _act(self, norm, x):
+        if self.use_pallas:
+            return ops.groupnorm_silu(x.contiguous(), norm.scale, norm.bias)
+        return F.silu(norm(x))
+
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self._act(self.norm1, x))
+        h = self.conv2(self._act(self.norm2, h))
         return h + (self.skip(x) if self.skip is not None else x)
 
 
 def _stage(cfg: VAEConfig, sample_name: str, in_ch: int, out_ch: int,
-           sample_out: int) -> nn.ModuleDict:
+           sample_out: int, use_pallas: bool) -> nn.ModuleDict:
     stage = nn.ModuleDict({sample_name: L.Conv(in_ch, sample_out, 3)})
     for ri in range(cfg.n_res):
-        stage[f"res{ri}"] = ResBlock(out_ch, out_ch)
+        stage[f"res{ri}"] = ResBlock(out_ch, out_ch, use_pallas=use_pallas)
     return stage
 
 
 class VAE(nn.Module):
     def __init__(self, cfg: VAEConfig, *,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, use_pallas: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.use_pallas = use_pallas
         enc = nn.ModuleDict({"stem": L.Conv(cfg.in_ch, cfg.base_ch, 3)})
         ch = cfg.base_ch
         for si, mult in enumerate(cfg.ch_mult):
             out = cfg.base_ch * mult
-            enc[f"stage{si}"] = _stage(cfg, "down", ch, out, out)
+            enc[f"stage{si}"] = _stage(cfg, "down", ch, out, out,
+                                       use_pallas)
             ch = out
         enc["norm_out"] = L.GroupNorm(ch)
         enc["to_moments"] = L.Conv(ch, 2 * cfg.z_ch, 1)
         dec = nn.ModuleDict({"from_z": L.Conv(cfg.z_ch, ch, 1)})
         for si, mult in enumerate(reversed(cfg.ch_mult)):
             out = cfg.base_ch * mult
-            dec[f"stage{si}"] = _stage(cfg, "up", ch, out, out * 4)
+            dec[f"stage{si}"] = _stage(cfg, "up", ch, out, out * 4,
+                                       use_pallas)
             ch = out
         dec["norm_out"] = L.GroupNorm(ch)
         dec["to_img"] = L.Conv(ch, cfg.in_ch, 3)

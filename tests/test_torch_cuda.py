@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import adaln, flash_attention, ops, ref, vdb_topk
+from repro_torch.kernels import (adaln, flash_attention, groupnorm_silu, ops,
+                                 ref, vdb_topk)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -61,6 +62,35 @@ def test_vdb_topk_kernels_match_plain(dev, qn, nodes, cap, d, k):
                                             mask_nodes=mask))
 
 
+@pytest.mark.parametrize("qn,n,d,k,empty", [
+    (1, 1, 4, 1, False), (8, 400, 512, 8, False), (8, 400, 512, 8, True),
+    (5, 30, 16, 30, False), (17, 130, 64, 32, False)])
+def test_vdb_topk_single_matches_plain(dev, qn, n, d, k, empty):
+    q, slabs, valid, _ = _scan_case(dev, qn, 2, n, d, qn + n + d)
+    db = slabs[0, 1]                       # node 0 of a case is empty
+    valid = valid[1] if not empty else valid[0]
+    _same_topk(vdb_topk.launch_single(q, db, valid, k),
+               ref.vdb_topk_ref(q, db, valid, k))
+
+
+@pytest.mark.parametrize("b,h,w,c,groups", [
+    (1, 1, 1, 4, 32), (2, 64, 64, 128, 32), (1, 32, 32, 48, 32),
+    (8, 16, 16, 512, 32), (3, 9, 7, 64, 8), (1, 256, 256, 128, 32)])
+def test_groupnorm_silu_matches_plain(dev, b, h, w, c, groups):
+    g = torch.Generator().manual_seed(b * h + c)
+    x = (torch.randn((b, h, w, c), generator=g) * 3 + 2).to(dev)
+    scale = (torch.randn((c,), generator=g) * 0.3 + 1).to(dev)
+    bias = (torch.randn((c,), generator=g) * 0.3).to(dev)
+    got = groupnorm_silu.launch(x, scale, bias, groups=groups)
+    torch.testing.assert_close(
+        got, ref.groupnorm_silu_ref(x, scale, bias, groups=groups), **TOL)
+    # the same bits on every run, and for an image alone or in a batch
+    assert torch.equal(got, groupnorm_silu.launch(x, scale, bias,
+                                                  groups=groups))
+    assert torch.equal(got[-1:], groupnorm_silu.launch(
+        x[-1:].contiguous(), scale, bias, groups=groups))
+
+
 @pytest.mark.parametrize("b,sq,sk,h,d", [
     (1, 1, 1, 1, 32), (2, 65, 65, 3, 64), (1, 100, 300, 2, 128),
     (8, 256, 256, 12, 64)])
@@ -102,3 +132,19 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     with pytest.raises(ValueError, match="k must be"):
         ops.vdb_topk_pernode(q, slabs, valid, 33)
     assert kernels.LAUNCHES["vdb_topk_pernode"] == 0
+    db = torch.randn((64, 16), device=dev)
+    ok = torch.ones((64,), dtype=torch.bool, device=dev)
+    ops.vdb_topk(q, db, ok, 4)
+    with pytest.raises(ValueError, match="k must be"):
+        ops.vdb_topk(q, db, ok, 33)
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.vdb_topk(q, db[:3], ok[:3], 4)
+    assert kernels.LAUNCHES["vdb_topk"] == 1
+    fm = torch.randn((1, 4, 4, 64), device=dev)
+    ops.groupnorm_silu(fm, fm[0, 0, 0], fm[0, 0, 1])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.groupnorm_silu(fm[..., :6].contiguous(), fm[0, 0, 0, :6],
+                           fm[0, 0, 1, :6])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.groupnorm_silu(fm.transpose(1, 2), fm[0, 0, 0], fm[0, 0, 1])
+    assert kernels.LAUNCHES["groupnorm_silu"] == 1

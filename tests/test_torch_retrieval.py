@@ -38,8 +38,9 @@ def _mixed_fleet(cls, seed: int, dim: int = 24):
     nodes with non-uniform capacities — built identically for either
     package's VectorDB class."""
     rng = np.random.default_rng(seed)
-    dbs = [cls(dim, 32, name="empty"), cls(dim, 32, name="partial"),
-           cls(dim, 16, name="full"), cls(dim, 48, name="overfull")]
+    kw = dict(device="cpu") if cls is VectorDB else {}
+    dbs = [cls(dim, cap, name=name, **kw) for cap, name in (
+        (32, "empty"), (32, "partial"), (16, "full"), (48, "overfull"))]
     for db, n in zip(dbs[1:], (10, 16, 60)):
         db.add(_unit(rng, n, dim), _unit(rng, n, dim), np.arange(n), 0.0)
     return dbs, rng
@@ -149,7 +150,7 @@ def test_incremental_state_matches_rebuild_and_jax():
     with no slab upload after the build."""
     rng_t, rng_j = np.random.default_rng(11), np.random.default_rng(11)
     dim = 12
-    tdbs = [VectorDB(dim, c) for c in (8, 16, 16)]
+    tdbs = [VectorDB(dim, c, device="cpu") for c in (8, 16, 16)]
     jdbs = [JVectorDB(dim, c) for c in (8, 16, 16)]
     ci = ClusterIndex.from_dbs(tdbs, device="cpu")
     ji = JClusterIndex.from_dbs(jdbs)
@@ -179,12 +180,12 @@ def test_incremental_state_matches_rebuild_and_jax():
 
 def test_refresh_node_rebinds_restored_vdb():
     rng = np.random.default_rng(13)
-    dbs = [VectorDB(8, 8) for _ in range(2)]
+    dbs = [VectorDB(8, 8, device="cpu") for _ in range(2)]
     dbs[0].add(_unit(rng, 4, 8), _unit(rng, 4, 8), np.arange(4), 0.0)
     snap = dbs[0].snapshot()
     ci = ClusterIndex.from_dbs(dbs, device="cpu")
     dbs[0].evict_slots(np.array([0, 1, 2, 3]))
-    restored = VectorDB.restore(8, 8, snap)
+    restored = VectorDB.restore(8, 8, snap, device="cpu")
     ci.refresh_node(0, db=restored)
     assert ci.dbs[0] is restored and ci.stats["slab_uploads"] == 2
     restored.add(_unit(rng, 1, 8), _unit(rng, 1, 8), np.array([99]), 1.0)

@@ -140,7 +140,8 @@ def test_serve_cli_drain_path(capsys):
     assert "requests           : 16" in out and "route mix" in out
 
 
-@pytest.mark.parametrize("flag", [["--continuous"], ["--step-level"],
+@pytest.mark.parametrize("flag", [["--journal-dir", "journals"],
+                                  ["--tenants", "3"],
                                   ["--fault-schedule", "mixed"],
                                   ["--mesh-nodes", "2"]])
 def test_serve_cli_refuses_later_slices(flag, capsys):
@@ -148,3 +149,25 @@ def test_serve_cli_refuses_later_slices(flag, capsys):
         tserve.main(flag + ["--device", "cpu"])
     assert exc.value.code == 2
     assert "not part of the PyTorch port" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,mode", [
+    (["--continuous"], "(continuous, 50 req/s offered)"),
+    (["--continuous", "--step-level", "--slot-capacity", "4"],
+     "(step-level continuous, 50 req/s offered)")])
+def test_serve_cli_continuous_modes(flags, mode, capsys):
+    assert tserve.main(["--requests", "16", "--nodes", "3",
+                        "--device", "cpu"] + flags) == 0
+    out = capsys.readouterr().out
+    assert "requests           : 16" in out and mode in out
+    assert ("slot occupancy" in out) == ("--step-level" in flags)
+
+
+@pytest.mark.parametrize("flags", [["--step-level"],
+                                   ["--continuous", "--slot-capacity", "4"],
+                                   ["--continuous", "--arrival-rate", "0"]])
+def test_serve_cli_checks_continuous_flags(flags, capsys):
+    with pytest.raises(SystemExit) as exc:
+        tserve.main(flags + ["--device", "cpu"])
+    assert exc.value.code == 2
+    assert "--" in capsys.readouterr().err
