@@ -9,17 +9,20 @@ failure exits nonzero (nothing is caught):
 1. card and build — print the card's name and power limit
    (``nvidia-smi``), fix the TF32 flags, build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
-   source, all at once).
+   source, all at once); print each kernel's registers and spills
+   (``-Xptxas -v``) and count K4's tensor-core (HMMA) instructions with
+   ``cuobjdump``.
 2. kernels — each of the six kernels against its plain PyTorch version
    on the same inputs on the card, at the main paths' shapes: the
    cluster scans (K1 per node, K2 masked/global) at Q=8 queries, 4 nodes
    x 400 slots x 512 dims, k=8, with a random case, an exact-tie case and
    an empty node; the single-slab scan (K3) at q (8, 512), db (400, 512),
-   random, exact ties and every slot invalid; flash attention (K4) and
-   fused adaLN (K5) at DiT-B/2 shapes, batch 8; GroupNorm+SiLU (K6) at
-   every resblock shape of the 256 px VAE at B=8 and B=1, plus the
-   group shrink rule.  Prints error, tolerance, kernel / plain / library
-   milliseconds and the bound.
+   random, exact ties and every slot invalid; flash attention (K4) at
+   DiT-B/2 shapes, B = 1, 2, 4, 8, with SDPA beside it; fused adaLN (K5)
+   at B=8; GroupNorm+SiLU (K6) at every resblock shape of the 256 px VAE
+   at B=8 and B=1 with its partition, plus the group shrink rule.
+   Prints error, tolerance, kernel / plain / library milliseconds and
+   the bound.
 3. serve — ``build_system(n_nodes=4, res=256)`` over a dit-b2-width DiT
    (12 layers, 768 wide, 12 heads, patch 2, 256 tokens) and the full f8
    VAE at 256 px, random seeded weights; ``ServingEngine(max_batch=8)``
@@ -35,8 +38,11 @@ failure exits nonzero (nothing is caught):
    cluster index (``use_cluster_index=False``): 8 requests, every
    Retrieve through K3.
    Launch counts are zeroed right before each drive of 3-3c and read
-   right after; a kernel of a drive's path with no launch fails.
-4. check — outputs are finite images of the right shape; the cluster
+   right after; a kernel of a drive's path with no launch fails.  The
+   per-shape counts of those drives are then timed shape by shape and
+   ranked by launches x (device - bound).
+4. check — one K6 call is one kernel (its CUDA graph has one node);
+   outputs are finite images of the right shape; the cluster
    scans and the standalone scans agree with CPU copies of the fleet;
    step level and group-continuous agree on routes, nodes, steps and
    cache state, images within a stated tolerance; the DiT and the VAE
@@ -62,6 +68,7 @@ SRC = ROOT / "src"
 # NVIDIA H100 SXM published peaks (data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 # kernel tolerances (f32 vs f32, TF32 off): a kernel sums in another
 # order than the plain version — dot products of 512 (scan) or 64
@@ -103,6 +110,52 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(build_log: str):
+    """(kernel, 'N registers, S smem, spills') per entry function of a
+    ``-Xptxas -v`` log, names demangled where ``c++filt`` exists."""
+    import re
+    import shutil
+    out, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill stores" in line and name:
+            spill = line.strip()
+        elif "Used" in line and name:
+            out.append([name, line.split(":", 1)[1].strip() + "; " + spill])
+            name = None
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        for row, dem in zip(out, names):
+            row[0] = re.sub(r"\(.*", "", dem.replace(
+                "(anonymous namespace)::", ""))
+    return out
+
+
+def tensor_core_check(build) -> str:
+    """Count K4's tensor-core instructions (HMMA) in its SASS with
+    ``cuobjdump``; fails if the kernel has none."""
+    import os
+    import shutil
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return "flash_attention SASS: not checked (no cuobjdump)"
+    sass = subprocess.run([tool, "-sass", str(build._target(
+        "flash_attention"))], capture_output=True, text=True, check=True,
+        timeout=120).stdout.splitlines()
+    hmma = [ln for ln in sass if "HMMA" in ln]
+    if not hmma:
+        raise AssertionError("flash_attention has no HMMA instruction")
+    kind = sorted({ln.split()[1] for ln in hmma if len(ln.split()) > 1})
+    return (f"flash_attention SASS: {len(hmma)} tensor-core instructions "
+            f"({', '.join(kind)})")
 
 
 def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -255,7 +308,7 @@ def run_kernel_checks(dev):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import adaln, flash_attention, ref, vdb_topk
+    from repro_torch.kernels import adaln, ref, vdb_topk
 
     gen = torch.Generator().manual_seed(0)
     rows = []
@@ -295,36 +348,8 @@ def run_kernel_checks(dev):
         lambda: vdb_topk.launch_sharded(q, slabs, valid, nids, k),
         lambda: ref.vdb_topk_sharded_ref(q, slabs, valid, nids, k)))
 
-    # K4: q, k, v as the DiT hands them over — strided slices of one
-    # fused (B, T, 3, H, Dh) projection
-    b, t, h, hd = 8, 256, 12, 64
-    qkv = torch.randn((b, t, 3, h, hd), generator=gen).to(dev)
-    qq, kk, vv = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    for sq in (t, 200):                  # 200: a ragged final query tile
-        got = flash_attention.launch(qq[:, :sq], kk[:, :sq], vv[:, :sq])
-        want = ref.flash_attention_ref(qq[:, :sq], kk[:, :sq], vv[:, :sq])
-        err = float((got - want).abs().max())
-        if err > KERNEL_TOL:
-            raise AssertionError(f"flash_attention S={sq}: err {err}")
-    got = flash_attention.launch(qq[:, :100], kk, vv, causal=True)
-    want = ref.flash_attention_ref(qq[:, :100], kk, vv, causal=True)
-    if float((got - want).abs().max()) > KERNEL_TOL:
-        raise AssertionError("flash_attention causal disagrees")
-    e4 = float((flash_attention.launch(qq, kk, vv)
-                - ref.flash_attention_ref(qq, kk, vv)).abs().max())
-    b4 = bound(4 * b * t * h * hd * 4, 4.0 * b * h * t * t * hd)
-    qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
-    rows.append(timed(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:82", max_abs_err=e4,
-        tol=KERNEL_TOL, bound_ms=b4[0], bound_by=b4[1],
-        shape=f"q/k/v ({b}, {t}, {h}, {hd}) strided"),
-        lambda: flash_attention.launch(qq, kk, vv),
-        lambda: ref.flash_attention_ref(qq, kk, vv),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt)))
-    log(f"[kernels] flash_attention err {e4:.2e} (also S=200, causal), "
-        f"tol {KERNEL_TOL}")
+    rows.append(check_flash_attention(gen, dev))
+    b, t = 8, 256
 
     # K5: x (B, T, D); shift/scale as chunks of the adaLN projection
     dm = 768
@@ -359,6 +384,75 @@ def run_kernel_checks(dev):
             f"eager call {r['call_ms']:.4f} ms, plain "
             f"{r['plain_call_ms']:.4f} ms  [{r['shape']}]")
     return rows
+
+
+def fa_bound(b: int, sq: int, sk: int, h: int, d: int):
+    """K4 bound: q, k, v read once and o written once; 4·B·H·Sq·Sk·D flops
+    of products, run on the tensor cores as three TF32 products each
+    (3xTF32, which keeps f32 accuracy), against the dense TF32 rate.
+    Second value: the same products as f32 FMA on the CUDA cores, the
+    bound of the CUDA-core kernel this one replaced, kept for reference."""
+    byts = (2 * b * sq * h * d + 2 * b * sk * h * d) * 4
+    flops = 4.0 * b * h * sq * sk * d
+    t_mem = byts / HBM_BYTES_PER_S * 1e3
+    t_tc = 3 * flops / TF32_FLOP_PER_S * 1e3
+    tc = (t_mem, "bytes") if t_mem >= t_tc else (t_tc, "operations")
+    return tc, bound(byts, flops)[0]
+
+
+def check_flash_attention(gen, dev) -> dict:
+    """K4 on q, k, v as the DiT hands them over (strided slices of one
+    fused (B, T, 3, H, Dh) projection) at B = 1, 2, 4, 8: S=256, a ragged
+    S=200 and causal rows against the plain version; device ms of kernel,
+    plain and SDPA at each batch.  The row reported is B=8."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+    t, h, hd = 256, 12, 64
+    qkv = torch.randn((8, t, 3, h, hd), generator=gen).to(dev)
+    per_batch = []
+    for b in (1, 2, 4, 8):
+        qq, kk, vv = qkv[:b, :, 0], qkv[:b, :, 1], qkv[:b, :, 2]
+        err = 0.0
+        for sq, sk, causal in ((t, t, False), (200, 200, False),
+                               (100, t, True)):
+            got = flash_attention.launch(qq[:, :sq], kk[:, :sk], vv[:, :sk],
+                                         causal=causal)
+            want = ref.flash_attention_ref(qq[:, :sq], kk[:, :sk],
+                                           vv[:, :sk], causal=causal)
+            e = float((got - want).abs().max())
+            if e > KERNEL_TOL:
+                raise AssertionError(f"flash_attention B={b} Sq={sq} Sk={sk}"
+                                     f" causal={causal}: err {e}")
+            err = max(err, e)
+        (bd, by), bd_f32 = fa_bound(b, t, t, h, hd)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
+        per_batch.append(timed(dict(
+            batch=b, max_abs_err=err, bound_ms=bd, bound_by=by,
+            bound_f32_ms=bd_f32,
+            layout=flash_attention.layout(b, h, t, t, hd)),
+            lambda: flash_attention.launch(qq, kk, vv),
+            lambda: ref.flash_attention_ref(qq, kk, vv),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+    for r in per_batch:
+        lay = r["layout"]
+        log(f"[kernels] flash_attention B={r['batch']} (q/k/v ({r['batch']}, "
+            f"{t}, {h}, {hd}) strided; {lay['row_groups']} x "
+            f"{lay['key_slots']} warps a block): err {r['max_abs_err']:.2e}"
+            f"  device {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  SDPA "
+            f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}, 3xTF32; f32 FMA {r['bound_f32_ms']:.4f})")
+    row = dict(per_batch[-1])
+    row.update(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:82",
+               max_abs_err=max(r["max_abs_err"] for r in per_batch),
+               tol=KERNEL_TOL, per_batch=per_batch,
+               shape=f"q/k/v (8, {t}, {h}, {hd}) strided")
+    log(f"[kernels] flash_attention: every batch also at S=200 and causal; "
+        f"tol {KERNEL_TOL}")
+    return row
 
 
 def single_scan_inputs(gen, case: str, dev):
@@ -413,6 +507,43 @@ def check_single_scan(gen, dev, k: int) -> dict:
         lambda: ref.vdb_topk_ref(q, db, valid, k))
 
 
+def kernels_per_call(fn) -> int:
+    """Kernels one call of ``fn`` puts on the card: the call captured into a
+    CUDA graph, whose nodes ``cuGraphGetNodes`` counts."""
+    import ctypes
+
+    import torch
+    fn()                              # set-up (attributes) outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    if libcuda.cuGraphGetNodes(graph.raw_cuda_graph(), None,
+                               ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    return n.value
+
+
+def one_launch_per_call(dev) -> int:
+    """One K6 call at each B=1 resblock shape must be exactly one kernel
+    (no statistics or merge launches)."""
+    import torch
+
+    from repro_torch.kernels import groupnorm_silu
+    for hw, c in VAE_RESBLOCK_SHAPES:
+        x = torch.randn((1, hw, hw, c), device=dev)
+        one = torch.ones((c,), device=dev)
+        n = kernels_per_call(lambda: groupnorm_silu.launch(x, one, one))
+        if n != 1:
+            raise AssertionError(f"groupnorm_silu {tuple(x.shape)} ran {n} "
+                                 "kernels")
+    return len(VAE_RESBLOCK_SHAPES)
+
+
 def gn_bound(x):
     """K6 bound: one read and one write of x; ~10 operations per element
     (statistics, normalise, affine, SiLU)."""
@@ -446,7 +577,8 @@ def check_groupnorm_silu(gen, dev) -> dict:
             xc = x.permute(0, 3, 1, 2)      # the NCHW view, channels last
             bd = gn_bound(x)
             r = timed(dict(shape=tuple(x.shape), max_abs_err=err,
-                           bound_ms=bd[0], bound_by=bd[1]),
+                           bound_ms=bd[0], bound_by=bd[1],
+                           plan=groupnorm_silu.plan(hw * hw, c)),
                       lambda: groupnorm_silu.launch(x, sc, bi),
                       lambda: ref.groupnorm_silu_ref(x, sc, bi),
                       lambda: F.silu(F.group_norm(xc, g, sc, bi, 1e-5)))
@@ -473,12 +605,18 @@ def check_groupnorm_silu(gen, dev) -> dict:
         per_shape.append(dict(shape=shape, groups=groups, max_abs_err=err))
     torch.cuda.synchronize()
     for r in per_shape:
+        p = r.get("plan")
         log(f"[kernels] groupnorm_silu {str(r['shape']):<22} err "
             f"{r['max_abs_err']:.2e}" + ("" if "ms" not in r else
             f"  device {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  "
             f"library(F.group_norm+F.silu) {r['library_ms']:.4f}  bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']}); eager "
-            f"{r['call_ms']:.4f} / {r['plain_call_ms']:.4f}"))
+            f"{r['call_ms']:.4f} / {r['plain_call_ms']:.4f}; "
+            f"{p['slices']} slices x {p['cluster_blocks']} blocks of "
+            f"{p['threads']} threads, {p['thread_pixels_on_chip']}/"
+            f"{p['thread_pixels']} of a thread's pixels on chip, "
+            f"{p['smem_bytes']} B shared, {p['max_clusters']} clusters "
+            f"fit at once"))
     log("[kernels] groupnorm_silu: same bits on a second run and for an "
         f"image alone; tol {KERNEL_TOL}")
     row.update(name="groupnorm_silu", route="cuda",
@@ -489,6 +627,81 @@ def check_groupnorm_silu(gen, dev) -> dict:
                shape=f"{row['shape']} NHWC, "
                f"{groupnorm_silu.num_groups(row['shape'][-1], 32)} groups")
     return row
+
+
+def shape_case(name: str, shape: tuple, gen, dev):
+    """(kernel call, bound ms) of ``name`` at a shape key of
+    ``kernels.LAUNCHES_BY_SHAPE``, on random inputs."""
+    import torch
+
+    from repro_torch.kernels import adaln, flash_attention, groupnorm_silu
+    from repro_torch.kernels import vdb_topk
+
+    def rnd(*sz):
+        return torch.randn(sz, generator=gen).to(dev)
+    if name in ("vdb_topk_pernode", "vdb_topk_sharded"):
+        qn, n_idx, n_nodes, cap, d, k = shape
+        q, slabs = rnd(qn, d), rnd(n_idx, n_nodes, cap, d)
+        valid = torch.rand((n_nodes, cap), generator=gen).to(dev) < 0.7
+        nids = torch.randint(0, n_nodes, (qn,), generator=gen,
+                             dtype=torch.int32).to(dev)
+        base = (q.numel() + slabs.numel()) * 4 + valid.numel()
+        flops = 2.0 * qn * n_idx * n_nodes * cap * d
+        if name == "vdb_topk_pernode":
+            return (lambda: vdb_topk.launch_pernode(q, slabs, valid, k),
+                    bound(base + n_idx * n_nodes * qn * k * 8, flops)[0])
+        return (lambda: vdb_topk.launch_sharded(q, slabs, valid, nids, k),
+                bound(base + qn * 4 + n_idx * qn * k * 8, flops)[0])
+    if name == "vdb_topk":
+        qn, n, d, k = shape
+        q, db = rnd(qn, d), rnd(n, d)
+        valid = torch.rand((n,), generator=gen).to(dev) < 0.7
+        return (lambda: vdb_topk.launch_single(q, db, valid, k),
+                bound((q.numel() + db.numel()) * 4 + n + qn * k * 8,
+                      2.0 * qn * n * d)[0])
+    if name == "flash_attention":
+        b, sq, sk, h, d, causal = shape
+        q, k, v = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d)
+        return (lambda: flash_attention.launch(q, k, v, causal=bool(causal)),
+                fa_bound(b, sq, sk, h, d)[0][0])
+    if name == "adaln_modulate":
+        b, t, d = shape
+        x, ada = rnd(b, t, d), rnd(b, 6 * d)
+        return (lambda: adaln.launch(x, ada[:, :d], ada[:, d:2 * d]),
+                bound((2 * b * t * d + 2 * b * d) * 4, 8.0 * b * t * d)[0])
+    if name == "groupnorm_silu":
+        x, sc, bi = rnd(*shape), rnd(shape[-1]), rnd(shape[-1])
+        return (lambda: groupnorm_silu.launch(x, sc, bi), gn_bound(x)[0])
+    raise ValueError(name)
+
+
+def rank_by_shape(dev) -> list:
+    """Every kernel at every shape the main-path drives launched it
+    (``SHAPES``), timed on the card; the redesign ranking is launches x
+    (device - bound), summed over a kernel's shapes."""
+    import torch
+    gen = torch.Generator().manual_seed(11)
+    ranking = []
+    for name in sorted(SHAPES):
+        per = []
+        for shape, n in sorted(SHAPES[name].items(), key=lambda kv: -kv[1]):
+            fn, bd = shape_case(name, shape, gen, dev)
+            ms = device_ms(fn)
+            per.append(dict(shape=list(shape), launches=n, ms=ms, bound_ms=bd))
+            log(f"[launches] {name} {shape} x {n}: device {ms:.4f} ms, "
+                f"bound {bd:.4f} ms")
+        ranking.append(dict(
+            name=name, launches=sum(r["launches"] for r in per),
+            over_bound_ms=sum(r["launches"] * (r["ms"] - r["bound_ms"])
+                              for r in per),
+            device_ms=sum(r["launches"] * r["ms"] for r in per),
+            per_shape=per))
+    ranking.sort(key=lambda r: -r["over_bound_ms"])
+    for i, r in enumerate(ranking, 1):
+        log(f"[rank] {i} {r['name']}: {r['launches']} launches over "
+            f"{len(r['per_shape'])} shapes; x (device - bound) "
+            f"{r['over_bound_ms']:.1f} ms, x device {r['device_ms']:.1f} ms")
+    return ranking
 
 
 # ---------------------------------------------------------------------------
@@ -510,9 +723,21 @@ def make_models(dev):
     return dit.to(dev).eval(), vae.to(dev).eval()
 
 
-def drive(engine, prompts, first_seed: int):
+# kernel -> Counter(shape -> launches) over the main-path drives
+SHAPES: dict = {}
+
+
+def add_shapes() -> None:
+    from collections import Counter
+
+    from repro_torch import kernels
+    for name, c in kernels.LAUNCHES_BY_SHAPE.items():
+        SHAPES.setdefault(name, Counter()).update(c)
+
+
+def drive(engine, prompts, first_seed: int, count_shapes: bool = True):
     """One run of the main path: counts zeroed just before, read just
-    after."""
+    after (and, unless ``count_shapes`` is false, added to ``SHAPES``)."""
     import torch
 
     from repro_torch import kernels
@@ -526,6 +751,8 @@ def drive(engine, prompts, first_seed: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
+    if count_shapes:
+        add_shapes()
     walls = engine.system.stats.batch_wall_latencies[n0:]
     return done, counts, wall, walls
 
@@ -629,7 +856,7 @@ def run_serve(dev, n_requests: int, profile: bool = False):
                  for r in RequestTrace(seed=2).generate(16)]
         prof = profile_drive(   # [::2] keeps (done, wall)
             "drain, score routing", system,
-            lambda: drive(engine, fresh, 1000)[::2])
+            lambda: drive(engine, fresh, 1000, count_shapes=False)[::2])
 
     res = backend.image_res
     for c in done + done2:
@@ -648,9 +875,9 @@ def run_serve(dev, n_requests: int, profile: bool = False):
     return system, backend, launches, summary
 
 
-def drive_run(engine, arrivals, **kw):
+def drive_run(engine, arrivals, count_shapes: bool = True, **kw):
     """One ``ServingEngine.run`` of the main path: counts zeroed just
-    before, read just after."""
+    before, read just after (and added to ``SHAPES``)."""
     import torch
 
     from repro_torch import kernels
@@ -659,7 +886,10 @@ def drive_run(engine, arrivals, **kw):
     t0 = time.perf_counter()
     done = engine.run(arrivals, **kw)
     torch.cuda.synchronize()
-    return done, dict(kernels.LAUNCHES), time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    if count_shapes:
+        add_shapes()
+    return done, counts, time.perf_counter() - t0
 
 
 def warm_latents(system, reqs, n_scenes: int) -> None:
@@ -790,8 +1020,8 @@ def run_latent_step_level(dev, backend, profile: bool = False):
         eng = ServingEngine(s_prof, max_batch=8)
         prof = profile_drive(
             "latent-depth step level", s_prof,
-            lambda: drive_run(eng, arrivals, step_level=True,
-                              slot_capacity=8)[::2])
+            lambda: drive_run(eng, arrivals, count_shapes=False,
+                              step_level=True, slot_capacity=8)[::2])
     return (c_stp, c_grp), dict(profile=prof,
         step_wall_s=w_stp, group_wall_s=w_grp, steps=len(occ),
         occupancy=occ, route_mix=s_stp.stats.route_counts,
@@ -1026,9 +1256,9 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
         + f" (wall {time.perf_counter() - t0:.1f}s)")
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, info in ptxas_summary(_build.build_log(name)):
+            log(f"[build] {name}: {fn}: {info}")
+    log(f"[build] {tensor_core_check(_build)}")
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1045,6 +1275,9 @@ def main() -> int:
     for r in rows:
         if launches[r["name"]] == 0:
             raise AssertionError(f"no main-path drive launched {r['name']}")
+    ranking = rank_by_shape(dev)
+    log(f"[check] groupnorm_silu: one kernel per call (CUDA graph of one "
+        f"call at each of {one_launch_per_call(dev)} shapes)")
 
     kernels_line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
@@ -1056,7 +1289,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=card, kernels=rows, launches=launches, serve=summary,
-                 seconds=time.perf_counter() - t_all), indent=1,
+                 ranking=ranking, seconds=time.perf_counter() - t_all),
+            indent=1,
             default=lambda o: o.item() if hasattr(o, "item") else str(o)))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s")
     print(card)

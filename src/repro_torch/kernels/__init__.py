@@ -19,21 +19,31 @@ kernel                      route   replaces
 tensor takes the plain version (:mod:`repro_torch.kernels.ref`), a CUDA
 tensor launches the kernel or raises — there is no fallback.
 
-``LAUNCHES`` counts kernel launches per kernel.  A wrapper adds one right
-after its kernel was launched, and nowhere else, so a run can show that
-its path really went through the kernels (``reset_launches`` before the
-run, ``LAUNCHES`` after it).
+``LAUNCHES`` counts kernel launches per kernel, and ``LAUNCHES_BY_SHAPE``
+the same launches per kernel and input shape.  A wrapper calls
+:func:`count_launch` right after its kernel was launched, and nowhere
+else, so a run can show that its path really went through the kernels,
+and at which shapes (``reset_launches`` before the run, the two dicts
+after it).
 """
 from __future__ import annotations
 
-from typing import Dict
+from collections import Counter
+from typing import Dict, Tuple
 
 KERNELS = ("vdb_topk_pernode", "vdb_topk_sharded", "vdb_topk",
            "flash_attention", "adaln_modulate", "groupnorm_silu")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES_BY_SHAPE: Dict[str, Counter] = {name: Counter() for name in KERNELS}
+
+
+def count_launch(name: str, shape: Tuple[int, ...]) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_SHAPE[name][tuple(shape)] += 1
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+        LAUNCHES_BY_SHAPE[name].clear()

@@ -82,5 +82,5 @@ def launch(x, shift, scale, *, eps: float = 1e-5):
         kernel[(b * t,)](x, shift, scale, out, t, d, shift.stride(0),
                          scale.stride(0), eps, BLOCK_D=block_d,
                          num_warps=4 if block_d <= 1024 else 8)
-    kernels.LAUNCHES["adaln_modulate"] += 1
+    kernels.count_launch("adaln_modulate", (b, t, d))
     return out

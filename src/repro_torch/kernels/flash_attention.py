@@ -1,4 +1,4 @@
-"""Flash attention forward on the card (CUDA C++).
+"""Flash attention forward on the card (CUDA C++, tensor cores).
 
 Replaces the TPU kernel ``flash_attention`` (body ``_flash_kernel``) of
 ``repro/kernels/flash_attention.py``.  Source:
@@ -6,12 +6,17 @@ Replaces the TPU kernel ``flash_attention`` (body ``_flash_kernel``) of
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
 What bounds it on the card at the DiT-B/2 shapes (B=8, S=256, H=12,
-D=64): operations — 4·B·H·S²·D ≈ 1.6 GFLOP of f32 FMA against the
-card's f32 rate; the (B, S, H, D) tensors are only 25 MB.  The TPU
-kernel keeps the running max/sum/accumulator in VMEM across a
-sequential key-block grid axis; here a block owns 64 query rows, keeps
-them in registers and loops over the key axis itself, staging K/V tiles
-in shared memory (see the source).  Plain FMA, no tensor cores yet.
+D=64): operations — 4·B·H·S²·D ≈ 1.6 GFLOP of products against 25 MB
+of q/k/v/o.  The products run on the tensor cores in TF32 with each
+operand split into two TF32 halves (hi + lo, round to nearest) and
+three products summed in f32 (lo·hi + hi·lo + hi·hi), which keeps f32
+accuracy (the 2e-5 kernel tolerance) at three TF32 products per f32
+one: the bound is 3·4·B·H·S²·D against 495 TFLOP/s dense TF32.  A warp
+owns 16 query rows (``mma.sync`` m16n8k8) and keeps P in registers
+between the two products; K/V tiles of 64 keys stream through a
+two-stage ``cp.async`` ring in shared memory; at small batches the
+warps of a block split the key tiles of the same rows and merge their
+partial softmax sums, so that B=1 still fills the SMs (see the source).
 """
 from __future__ import annotations
 
@@ -33,7 +38,20 @@ def _lib():
         lib.flash_attention_launch.argtypes = (
             [_P] * 4 + [_I] * 5 + [_P, ctypes.c_float, _I, _P])
         lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_layout.argtypes = [_I] * 5 + [_P]
+        lib.flash_attention_layout.restype = ctypes.c_int
     return lib
+
+
+def layout(b: int, h: int, sq: int, sk: int, d: int) -> dict:
+    """The block layout the launcher picks for these sizes on the current
+    card: ``row_groups`` x ``key_slots`` warps (16 query rows each; the
+    key slots of a row group split its key tiles) and ``smem_bytes``."""
+    out = (ctypes.c_longlong * 3)()
+    _build.check(_lib().flash_attention_layout(b, h, sq, sk, d,
+                                               ctypes.cast(out, _P)),
+                 "flash_attention_layout")
+    return dict(row_groups=out[0], key_slots=out[1], smem_bytes=out[2])
 
 
 def launch(q, k, v, *, causal: bool = False):
@@ -68,5 +86,5 @@ def launch(q, k, v, *, causal: bool = False):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq,
         sk, d, ctypes.cast(strides, _P), d ** -0.5, int(causal), stream)
     _build.check(err, "flash_attention")
-    kernels.LAUNCHES["flash_attention"] += 1
+    kernels.count_launch("flash_attention", (b, sq, sk, h, d, int(causal)))
     return out

@@ -1,4 +1,4 @@
-"""Fused GroupNorm + SiLU on the card (CUDA C++).
+"""Fused GroupNorm + SiLU on the card (CUDA C++), one launch per call.
 
 ``y = silu(groupnorm(x) * scale + bias)`` over an NHWC feature map — the
 pre-convolution activation of every VAE resblock (two per block, so 12
@@ -9,17 +9,23 @@ plain version :func:`repro_torch.kernels.ref.groupnorm_silu_ref`.
 
 What bounds it on the card: memory — one read and one write of x
 (2 x 268 MB at (8, 256, 256, 128) f32, 0.16 ms at 3.35 TB/s).  The TPU
-kernel reduces one whole map per program in VMEM; here the pixel rows
-are cut into chunks whose per-group Welford partials merge in a fixed
-order (see the source), so the statistics take a second read of x but
-every SM has work at batch 1 and the result has the same bits on every
-run.  CUDA C++ rather than Triton: the launch goes through one ctypes
-call, a few microseconds of host time, where the port's Triton launch
-path costs about 40 us.
+kernel reduces one whole map per program in VMEM; here a thread-block
+cluster per (batch element, slice of whole groups, 32 channels or 16
+where a map has few slices) keeps its slice of x in shared memory while
+the statistics are taken, merges its blocks' Welford partials through
+distributed shared memory in a fixed order, and normalises from the
+on-chip copy, all in one launch: x is read from device memory once
+wherever the slice fits in the cluster (see the source for the size
+rule).  No float
+atomics, and a partition fixed by (H·W, C, groups) alone, so the bits
+depend neither on the run nor on the batch.  CUDA C++ rather than
+Triton: the launch goes through one ctypes call, a few microseconds of
+host time, where the port's Triton launch path costs about 40 us.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -28,16 +34,21 @@ from repro_torch.kernels import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+PLAN_KEYS = ("slice_channels", "slices", "cluster_blocks", "threads",
+             "block_pixels", "thread_pixels", "thread_pixels_on_chip",
+             "smem_bytes")
 
 
 def _lib():
     lib = _build.library("groupnorm_silu")
     if lib.groupnorm_silu_launch.argtypes is None:
         lib.groupnorm_silu_launch.argtypes = (
-            [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P])
+            [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P])
         lib.groupnorm_silu_launch.restype = ctypes.c_int
-        lib.groupnorm_silu_chunks.argtypes = [_I, _I]
-        lib.groupnorm_silu_chunks.restype = ctypes.c_int
+        lib.groupnorm_silu_plan.argtypes = [_I, _I, _I, _P]
+        lib.groupnorm_silu_plan.restype = None
+        lib.groupnorm_silu_max_clusters.argtypes = [_I, _I, _I]
+        lib.groupnorm_silu_max_clusters.restype = ctypes.c_int
         lib.groupnorm_silu_max_channels.argtypes = []
         lib.groupnorm_silu_max_channels.restype = ctypes.c_int
     return lib
@@ -50,6 +61,18 @@ def num_groups(channels: int, groups: int) -> int:
     while channels % g:
         g -= 1
     return g
+
+
+def plan(hw: int, c: int, groups: int = 32) -> Dict[str, int]:
+    """How the kernel partitions an (H·W, C) map (``PLAN_KEYS``), plus
+    ``max_clusters``: how many of its clusters the card holds at once."""
+    lib = _lib()
+    g = num_groups(c, groups)
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    lib.groupnorm_silu_plan(hw, c, g, ctypes.cast(out, _P))
+    p = dict(zip(PLAN_KEYS, out))
+    p["max_clusters"] = lib.groupnorm_silu_max_clusters(hw, c, g)
+    return p
 
 
 def launch(x, scale, bias, *, groups: int = 32, eps: float = 1e-5):
@@ -74,16 +97,11 @@ def launch(x, scale, bias, *, groups: int = 32, eps: float = 1e-5):
     if not 1 <= b <= 65535 or h * w == 0:
         raise ValueError(f"need 1 <= batch <= 65535 and H*W > 0, got "
                          f"{tuple(x.shape)}")
-    g = num_groups(c, groups)
-    chunks = lib.groupnorm_silu_chunks(h * w, c)
-    part = torch.empty((b * chunks * g * 3,), dtype=torch.float32,
-                       device=x.device)
-    stats = torch.empty((b * g * 2,), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.groupnorm_silu_launch(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        part.data_ptr(), stats.data_ptr(), b, h * w, c, g, eps, stream)
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+        h * w, c, num_groups(c, groups), eps, stream)
     _build.check(err, "groupnorm_silu")
-    kernels.LAUNCHES["groupnorm_silu"] += 1
+    kernels.count_launch("groupnorm_silu", (b, h, w, c))
     return out

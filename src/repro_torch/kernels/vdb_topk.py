@@ -109,7 +109,8 @@ def launch_pernode(queries, slabs, valid, k: int):
     """K1: (scores, global slot ids) of shape (P, N, Q, k)."""
     out = _launch(queries, slabs, valid, None, k, per_node=True,
                   mask_nodes=False)
-    kernels.LAUNCHES["vdb_topk_pernode"] += 1
+    kernels.count_launch("vdb_topk_pernode",
+                         (queries.shape[0], *slabs.shape, k))
     return out
 
 
@@ -118,7 +119,8 @@ def launch_sharded(queries, slabs, valid, node_ids, k: int, *,
     """K2: (scores, global slot ids) of shape (P, Q, k)."""
     out = _launch(queries, slabs, valid, node_ids, k, per_node=False,
                   mask_nodes=mask_nodes)
-    kernels.LAUNCHES["vdb_topk_sharded"] += 1
+    kernels.count_launch("vdb_topk_sharded",
+                         (queries.shape[0], *slabs.shape, k))
     return out
 
 
@@ -146,5 +148,5 @@ def launch_single(queries, db, valid, k: int):
         part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
         out_i.data_ptr(), n, d, qn, k, stream)
     _build.check(err, "vdb_topk")
-    kernels.LAUNCHES["vdb_topk"] += 1
+    kernels.count_launch("vdb_topk", (qn, n, d, k))
     return out_s, out_i

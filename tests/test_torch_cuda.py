@@ -73,9 +73,15 @@ def test_vdb_topk_single_matches_plain(dev, qn, n, d, k, empty):
                ref.vdb_topk_ref(q, db, valid, k))
 
 
+# the 256 px VAE's resblock shapes at B = 1 and 8 ((128, 256) and
+# (256, 128) read part of each block's chunk a second time)
+VAE_SHAPES = [(b, hw, hw, c, 32) for b in (1, 8) for hw, c in (
+    (128, 128), (64, 256), (32, 512), (64, 512), (128, 256), (256, 128))]
+
+
 @pytest.mark.parametrize("b,h,w,c,groups", [
     (1, 1, 1, 4, 32), (2, 64, 64, 128, 32), (1, 32, 32, 48, 32),
-    (8, 16, 16, 512, 32), (3, 9, 7, 64, 8), (1, 256, 256, 128, 32)])
+    (8, 16, 16, 512, 32), (3, 9, 7, 64, 8)] + VAE_SHAPES)
 def test_groupnorm_silu_matches_plain(dev, b, h, w, c, groups):
     g = torch.Generator().manual_seed(b * h + c)
     x = (torch.randn((b, h, w, c), generator=g) * 3 + 2).to(dev)
@@ -93,7 +99,8 @@ def test_groupnorm_silu_matches_plain(dev, b, h, w, c, groups):
 
 @pytest.mark.parametrize("b,sq,sk,h,d", [
     (1, 1, 1, 1, 32), (2, 65, 65, 3, 64), (1, 100, 300, 2, 128),
-    (8, 256, 256, 12, 64)])
+    (8, 256, 256, 12, 64), (3, 97, 161, 2, 32), (2, 1, 256, 12, 64),
+    (2, 1, 256, 12, 128)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_matches_plain(dev, b, sq, sk, h, d, causal):
     g = torch.Generator().manual_seed(sq * 7 + d)
@@ -102,6 +109,39 @@ def test_flash_attention_matches_plain(dev, b, sq, sk, h, d, causal):
     torch.testing.assert_close(flash_attention.launch(q, k, v, causal=causal),
                                ref.flash_attention_ref(q, k, v,
                                                        causal=causal), **TOL)
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+def test_flash_attention_on_the_dits_strided_slices(dev, b):
+    """q, k, v as every DiT block passes them: slices of one fused
+    (B, T, 3, H, Dh) projection, at the batches the serving paths run
+    (each takes its own block layout)."""
+    g = torch.Generator().manual_seed(b)
+    qkv = torch.randn((b, 256, 3, 12, 64), generator=g).to(dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    torch.testing.assert_close(flash_attention.launch(q, k, v),
+                               ref.flash_attention_ref(q, k, v), **TOL)
+
+
+def test_groupnorm_silu_is_one_launch(dev):
+    """Statistics, cluster merge and output in one kernel: one call,
+    captured into a CUDA graph, is one graph node."""
+    import ctypes
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_size_t)]
+    for shape in ((1, 32, 32, 512), (1, 256, 256, 128), (2, 9, 7, 48)):
+        x = torch.randn(shape, device=dev)
+        sc = torch.ones((shape[-1],), device=dev)
+        groupnorm_silu.launch(x, sc, sc)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            groupnorm_silu.launch(x, sc, sc)
+        n = ctypes.c_size_t(0)
+        assert libcuda.cuGraphGetNodes(graph.raw_cuda_graph(), None,
+                                       ctypes.byref(n)) == 0
+        assert n.value == 1
 
 
 @pytest.mark.parametrize("b,t,d", [(1, 1, 4), (3, 77, 100), (8, 256, 768),
@@ -148,3 +188,6 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     with pytest.raises(ValueError, match="contiguous"):
         ops.groupnorm_silu(fm.transpose(1, 2), fm[0, 0, 0], fm[0, 0, 1])
     assert kernels.LAUNCHES["groupnorm_silu"] == 1
+    assert kernels.LAUNCHES_BY_SHAPE["groupnorm_silu"] == {(1, 4, 4, 64): 1}
+    assert kernels.LAUNCHES_BY_SHAPE["flash_attention"] == {
+        (2, 8, 8, 1, 64, 0): 1}

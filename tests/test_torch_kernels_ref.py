@@ -156,3 +156,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     y = torch.zeros(2, 4, 32)
     with pytest.raises(ValueError, match="CUDA"):
         adaln.launch(y, y[:, 0], y[:, 1])
+
+
+def test_launch_counts_by_kernel_and_shape():
+    """``count_launch`` (what a wrapper calls right after its launch) adds
+    to the kernel's total and to its count at that shape; the reset
+    clears both."""
+    from repro_torch import kernels
+    kernels.reset_launches()
+    kernels.count_launch("flash_attention", (1, 256, 256, 12, 64, 0))
+    kernels.count_launch("flash_attention", (1, 256, 256, 12, 64, 0))
+    kernels.count_launch("groupnorm_silu", (8, 32, 32, 512))
+    assert kernels.LAUNCHES["flash_attention"] == 2
+    assert kernels.LAUNCHES_BY_SHAPE["flash_attention"] == {
+        (1, 256, 256, 12, 64, 0): 2}
+    assert sum(kernels.LAUNCHES.values()) == 3
+    kernels.reset_launches()
+    assert not any(kernels.LAUNCHES.values())
+    assert not any(kernels.LAUNCHES_BY_SHAPE.values())
