@@ -15,14 +15,15 @@ failure exits nonzero (nothing is caught):
 2. kernels — each of the six kernels against its plain PyTorch version
    on the same inputs on the card, at the main paths' shapes: the
    cluster scans (K1 per node, K2 masked/global) at Q=8 queries, 4 nodes
-   x 400 slots x 512 dims, k=8, with a random case, an exact-tie case and
-   an empty node; the single-slab scan (K3) at q (8, 512), db (400, 512),
+   x 400 slots x 512 dims, k=8, with a random case, an exact-tie case
+   (slot ids equal) and an empty node; the single-slab scan (K3) at q (8, 512), db (400, 512),
    random, exact ties and every slot invalid; flash attention (K4) at
    DiT-B/2 shapes, B = 1, 2, 4, 8, with SDPA beside it; fused adaLN (K5)
-   at B=8; GroupNorm+SiLU (K6) at every resblock shape of the 256 px VAE
-   at B=8 and B=1 with its partition, plus the group shrink rule.
-   Prints error, tolerance, kernel / plain / library milliseconds and
-   the bound.
+   at B = 1 and 8 on the DiT's strided chunk views; GroupNorm+SiLU (K6)
+   at every resblock shape of the 256 px VAE at B=8 and B=1 with its
+   partition, plus the group shrink rule.  Prints error, tolerance,
+   kernel / plain / library milliseconds (device, and eager per call)
+   and the bound.
 3. serve — ``build_system(n_nodes=4, res=256)`` over a dit-b2-width DiT
    (12 layers, 768 wide, 12 heads, patch 2, 256 tokens) and the full f8
    VAE at 256 px, random seeded weights; ``ServingEngine(max_batch=8)``
@@ -41,7 +42,10 @@ failure exits nonzero (nothing is caught):
    right after; a kernel of a drive's path with no launch fails.  The
    per-shape counts of those drives are then timed shape by shape and
    ranked by launches x (device - bound).
-4. check — one K6 call is one kernel (its CUDA graph has one node);
+4. check — K1 against its plain version at every shape the drives ran
+   and at each query tile (exact ties: slot ids equal); one K6 call, and
+   one K1 call at every shape the drives ran, is one kernel (its CUDA
+   graph has one node);
    outputs are finite images of the right shape; the cluster
    scans and the standalone scans agree with CPU copies of the fleet;
    step level and group-continuous agree on routes, nodes, steps and
@@ -158,22 +162,27 @@ def tensor_core_check(build) -> str:
             f"({', '.join(kind)})")
 
 
-def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def call_ms(fn, iters: int = 50, runs: int = 5) -> float:
     """Time per call as the caller sees it: ``iters`` back-to-back eager
     calls between two CUDA events, so host launch cost counts wherever
-    it exceeds the device time (inputs stay warm in L2)."""
+    it exceeds the device time (inputs stay warm in L2); the best of
+    ``runs`` such runs, the one least disturbed by the host's other
+    load."""
     import torch
-    for _ in range(warmup):
+    for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    best = float("inf")
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
@@ -245,11 +254,14 @@ def scan_inputs(gen, *, ties: bool, dev):
     return [t.to(dev) for t in (q, slabs, valid, nids)]
 
 
-def check_topk(name, got, want, full, offset, tol):
+def check_topk(name, got, want, full, offset, tol, exact: bool = False):
     """Kernel top-k vs plain top-k.  Masked candidates: ``-inf`` in the
     plain version, the ``-1e30`` sentinel in the kernel.  Slot ids must be
-    equal, except at a near-tie, where the slot the kernel chose must
-    score within ``tol`` of the plain score at that rank."""
+    equal; with ``exact`` false (inputs whose scores round differently in
+    another summation order), except at a near-tie, where the slot the
+    kernel chose must score within ``tol`` of the plain score at that
+    rank.  ``exact`` is for integer-valued inputs, where every score and
+    every tie is exact, so the order of tied slots is checked too."""
     import torch
     s_k, i_k = got
     s_p, i_p = want
@@ -261,6 +273,9 @@ def check_topk(name, got, want, full, offset, tol):
     if err > tol:
         raise AssertionError(f"{name}: max |score err| {err} > {tol}")
     diff = i_k != i_p.to(i_k.dtype)
+    if exact and bool(diff.any()):
+        raise AssertionError(f"{name}: {int(diff.sum())} slot ids differ on "
+                             "exact scores")
     if bool(diff.any()):
         chosen = torch.gather(full, -1, (i_k.long() - offset))
         gap = float((chosen[diff] - s_p[diff]).abs().max())
@@ -270,9 +285,10 @@ def check_topk(name, got, want, full, offset, tol):
     return err, int(diff.sum())
 
 
-def check_scans(q, slabs, valid, nids, k: int):
+def check_scans(q, slabs, valid, nids, k: int, exact: bool):
     """K1 and K2 (masked and global) against their plain versions on one
-    set of inputs; returns {kernel: (max |score err|, near-tie swaps)}."""
+    set of inputs (``exact``: integer-valued, slot ids must be equal);
+    returns {kernel: (max |score err|, near-tie swaps)}."""
     import torch
 
     from repro_torch.kernels import ref, vdb_topk
@@ -284,7 +300,7 @@ def check_scans(q, slabs, valid, nids, k: int):
         "vdb_topk_pernode", vdb_topk.launch_pernode(q, slabs, valid, k),
         ref.vdb_topk_pernode_ref(q, slabs, valid, k),
         torch.where(valid[None, :, None, :], scores, float("-inf")),
-        (nodes * cap)[None, :, None, None], KERNEL_TOL)}
+        (nodes * cap)[None, :, None, None], KERNEL_TOL, exact)}
     flat = scores.permute(0, 2, 1, 3)                # (P, Q, N, cap)
     for mask_nodes in (True, False):
         ok = valid[None, None]
@@ -299,30 +315,32 @@ def check_scans(q, slabs, valid, nids, k: int):
                                           mask_nodes=mask_nodes),
             ref.vdb_topk_sharded_ref(q, slabs, valid, nids, k,
                                      mask_nodes=mask_nodes),
-            full, 0, KERNEL_TOL)
+            full, 0, KERNEL_TOL, exact)
     torch.cuda.synchronize()
     return out
 
 
 def run_kernel_checks(dev):
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels import adaln, ref, vdb_topk
+    from repro_torch.kernels import ref, vdb_topk
 
     gen = torch.Generator().manual_seed(0)
     rows = []
     k = 8
-    tie = check_scans(*scan_inputs(gen, ties=True, dev=dev), k)
+    tie = check_scans(*scan_inputs(gen, ties=True, dev=dev), k, exact=True)
     q, slabs, valid, nids = scan_inputs(gen, ties=False, dev=dev)
-    rnd = check_scans(q, slabs, valid, nids, k)
+    rnd = check_scans(q, slabs, valid, nids, k, exact=False)
     for case, res in (("exact ties", tie), ("random", rnd)):
-        log(f"[kernels] vdb_topk {case} (node 3 empty): "
+        log(f"[kernels] vdb_topk {case} (node 3 empty; slot ids "
+            + ("equal" if res is tie else "equal but at near-ties") + "): "
             + ", ".join(f"{n} err {e:.2e} ({d} near-tie swaps)"
                         for n, (e, d) in res.items())
             + f"; tol {KERNEL_TOL}")
     n_idx, n_nodes, cap, d = slabs.shape
     qn = q.shape[0]
+    log(f"[kernels] vdb_topk_pernode plan at Q={qn}: "
+        f"{vdb_topk.pernode_plan(qn, cap, d)}")
     flops = 2.0 * qn * n_idx * n_nodes * cap * d
     base = q.numel() * 4 + slabs.numel() * 4 + valid.numel()
     b1 = bound(base + n_idx * n_nodes * qn * k * 8, flops)
@@ -349,31 +367,7 @@ def run_kernel_checks(dev):
         lambda: ref.vdb_topk_sharded_ref(q, slabs, valid, nids, k)))
 
     rows.append(check_flash_attention(gen, dev))
-    b, t = 8, 256
-
-    # K5: x (B, T, D); shift/scale as chunks of the adaLN projection
-    dm = 768
-    x = (torch.randn((b, t, dm), generator=gen) * 2 + 0.5).to(dev)
-    ada = torch.randn((b, 6 * dm), generator=gen).to(dev)
-    sh, sc = ada[:, :dm], ada[:, dm:2 * dm]
-    t0 = time.perf_counter()
-    got = adaln.launch(x, sh, sc)
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
-    e5 = float((got - ref.adaln_modulate_ref(x, sh, sc)).abs().max())
-    if e5 > KERNEL_TOL:
-        raise AssertionError(f"adaln_modulate: err {e5}")
-    b5 = bound((2 * b * t * dm + 2 * b * dm) * 4, 8.0 * b * t * dm)
-    rows.append(timed(dict(
-        name="adaln_modulate", route="triton",
-        source="src/repro_torch/kernels/adaln.py",
-        replaces="src/repro/kernels/adaln.py:31", max_abs_err=e5,
-        tol=KERNEL_TOL, bound_ms=b5[0], bound_by=b5[1],
-        shape=f"x ({b}, {t}, {dm}), shift/scale ({b}, {dm}) strided"),
-        lambda: adaln.launch(x, sh, sc),
-        lambda: ref.adaln_modulate_ref(x, sh, sc)))
-    log(f"[kernels] adaln_modulate err {e5:.2e}, tol {KERNEL_TOL} "
-        f"(first call incl. Triton compile {triton_s:.1f}s)")
+    rows.append(check_adaln(gen, dev))
     rows.append(check_single_scan(gen, dev, k))
     rows.append(check_groupnorm_silu(gen, dev))
     for r in rows:
@@ -384,6 +378,61 @@ def run_kernel_checks(dev):
             f"eager call {r['call_ms']:.4f} ms, plain "
             f"{r['plain_call_ms']:.4f} ms  [{r['shape']}]")
     return rows
+
+
+def adaln_bound(b: int, t: int, d: int):
+    """K5 bound: x read once and y written once, shift and scale read
+    once; ~8 operations per element."""
+    return bound((2 * b * t * d + 2 * b * d) * 4, 8.0 * b * t * d)
+
+
+def check_adaln(gen, dev) -> dict:
+    """K5 on x (B, 256, 768) with shift/scale as strided chunks of the
+    (B, 6·768) adaLN projection, as every DiT block passes them, at B = 1
+    (where most launches run) and B = 8: against the plain version, the
+    same bits for an image alone and in the batch; device and eager ms.
+    The row reported is B=8, with B=1 beside it."""
+    import torch
+
+    from repro_torch.kernels import adaln, ref
+    t, dm = 256, 768
+    x8 = (torch.randn((8, t, dm), generator=gen) * 2 + 0.5).to(dev)
+    ada8 = torch.randn((8, 6 * dm), generator=gen).to(dev)
+    per_batch = []
+    for b in (1, 8):
+        x, ada = x8[:b], ada8[:b]
+        sh, sc = ada[:, :dm], ada[:, dm:2 * dm]
+        got = adaln.launch(x, sh, sc)
+        err = float((got - ref.adaln_modulate_ref(x, sh, sc)).abs().max())
+        if err > KERNEL_TOL:
+            raise AssertionError(f"adaln_modulate B={b}: err {err}")
+        if not torch.equal(adaln.launch(x[-1:].contiguous(), sh[-1:],
+                                        sc[-1:]), got[-1:]):
+            raise AssertionError("adaln_modulate: an image alone gives "
+                                 "other bits than in the batch")
+        bd = adaln_bound(b, t, dm)
+        per_batch.append(timed(dict(
+            batch=b, max_abs_err=err, bound_ms=bd[0], bound_by=bd[1],
+            warps_per_block=adaln.warps_per_block(b * t)),
+            lambda: adaln.launch(x, sh, sc),
+            lambda: ref.adaln_modulate_ref(x, sh, sc)))
+    for r in per_batch:
+        log(f"[kernels] adaln_modulate B={r['batch']} (x ({r['batch']}, {t}, "
+            f"{dm}), shift/scale strided; {r['warps_per_block']} warps, a "
+            f"row each, a block): err "
+            f"{r['max_abs_err']:.2e}  device {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f}  bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}); eager {r['call_ms']:.4f} ms a call")
+    row = dict(per_batch[-1])
+    row.update(name="adaln_modulate", route="cuda",
+               source="src/repro_torch/kernels/csrc/adaln.cu",
+               replaces="src/repro/kernels/adaln.py:31",
+               max_abs_err=max(r["max_abs_err"] for r in per_batch),
+               tol=KERNEL_TOL, per_batch=per_batch,
+               shape=f"x (8, {t}, {dm}), shift/scale (8, {dm}) strided")
+    log(f"[kernels] adaln_modulate: same bits for an image alone; tol "
+        f"{KERNEL_TOL}")
+    return row
 
 
 def fa_bound(b: int, sq: int, sk: int, h: int, d: int):
@@ -488,7 +537,7 @@ def check_single_scan(gen, dev, k: int) -> dict:
         errs[case] = check_topk(f"vdb_topk {case}",
                                 vdb_topk.launch_single(q, db, valid, k),
                                 ref.vdb_topk_ref(q, db, valid, k), full, 0,
-                                KERNEL_TOL)
+                                KERNEL_TOL, exact=case != "random")
     torch.cuda.synchronize()
     log("[kernels] vdb_topk (single slab) " + ", ".join(
         f"{c} err {e:.2e} ({d} near-tie swaps)" for c, (e, d) in errs.items())
@@ -528,12 +577,73 @@ def kernels_per_call(fn) -> int:
     return n.value
 
 
-def one_launch_per_call(dev) -> int:
-    """One K6 call at each B=1 resblock shape must be exactly one kernel
-    (no statistics or merge launches)."""
+def pernode_inputs(gen, shape, *, ties: bool, dev):
+    """K1 inputs at a ``LAUNCHES_BY_SHAPE`` key (Q, P, N, cap, D, k), the
+    last node empty.  ``ties``: integer-valued vectors, the second half of
+    each node's rows repeating the first, so exact ties straddle the
+    blocks of a cluster; else unit vectors."""
+    import torch
+    qn, n_idx, n_nodes, cap, d, _ = shape
+    if ties:
+        slabs = torch.randint(-1, 2, (n_idx, n_nodes, cap, d),
+                              generator=gen).float()
+        slabs[:, :, cap // 2:] = slabs[:, :, :cap - cap // 2]
+        q = torch.randint(-1, 2, (qn, d), generator=gen).float()
+    else:
+        slabs = torch.randn((n_idx, n_nodes, cap, d), generator=gen)
+        slabs /= slabs.norm(dim=-1, keepdim=True)
+        q = torch.randn((qn, d), generator=gen)
+        q /= q.norm(dim=-1, keepdim=True)
+    valid = torch.rand((n_nodes, cap), generator=gen) < 0.7
+    valid[-1] = False
+    return [t.to(dev) for t in (q, slabs, valid)]
+
+
+def check_pernode_shapes(dev) -> dict:
+    """K1 against its plain version at every shape the main-path drives
+    launched it, and at each query tile (Q = 1, 2, 3, 8, 16, 17) at the
+    serving fleet's slab: exact ties (slot ids equal) and unit vectors
+    (equal but at near-ties), scores within the tolerance."""
     import torch
 
-    from repro_torch.kernels import groupnorm_silu
+    from repro_torch.kernels import ref, vdb_topk
+    gen = torch.Generator().manual_seed(13)
+    drives = set(SHAPES.get("vdb_topk_pernode", {}))
+    tiles = {(qn, 2, 4, 400, 512, 8) for qn in (1, 2, 3, 8, 16, 17)}
+    out = {}
+    for shape in sorted(drives | tiles):
+        qn, n_idx, n_nodes, cap, d, k = shape
+        res = []
+        for ties in (True, False):
+            q, slabs, valid = pernode_inputs(gen, shape, ties=ties, dev=dev)
+            full = torch.where(valid[None, :, None, :], torch.einsum(
+                "qd,incd->inqc", q, slabs), float("-inf"))
+            off = (torch.arange(n_nodes, device=dev) * cap)[None, :, None,
+                                                             None]
+            res.append(check_topk(
+                f"vdb_topk_pernode at {shape} ties={ties}",
+                vdb_topk.launch_pernode(q, slabs, valid, k),
+                ref.vdb_topk_pernode_ref(q, slabs, valid, k), full, off,
+                KERNEL_TOL, exact=ties))
+        out[shape] = dict(drive=shape in drives, tile=vdb_topk.pernode_plan(
+            qn, cap, d)["query_tile"], err=max(e for e, _ in res),
+            near_tie_swaps=res[1][1])
+        log(f"[check] vdb_topk_pernode Q={qn} slabs {(n_idx, n_nodes, cap, d)}"
+            f" k={k} ({'a drive shape' if shape in drives else 'tile check'},"
+            f" query tile {out[shape]['tile']}): exact ties slot ids equal, "
+            f"unit vectors {res[1][1]} near-tie swaps; err "
+            f"{out[shape]['err']:.2e} (tol {KERNEL_TOL})")
+    torch.cuda.synchronize()
+    return out
+
+
+def one_launch_per_call(dev) -> dict:
+    """One K6 call at each B=1 resblock shape, and one K1 call at every
+    shape the main-path drives launched it, must be exactly one kernel
+    (no statistics, merge or scratch launches)."""
+    import torch
+
+    from repro_torch.kernels import groupnorm_silu, vdb_topk
     for hw, c in VAE_RESBLOCK_SHAPES:
         x = torch.randn((1, hw, hw, c), device=dev)
         one = torch.ones((c,), device=dev)
@@ -541,7 +651,18 @@ def one_launch_per_call(dev) -> int:
         if n != 1:
             raise AssertionError(f"groupnorm_silu {tuple(x.shape)} ran {n} "
                                  "kernels")
-    return len(VAE_RESBLOCK_SHAPES)
+    gen = torch.Generator().manual_seed(12)
+    k1 = sorted(SHAPES.get("vdb_topk_pernode", {}))
+    for shape in k1:
+        q, slabs, valid = pernode_inputs(gen, shape, ties=False, dev=dev)
+        k = shape[-1]
+        n = kernels_per_call(
+            lambda: vdb_topk.launch_pernode(q, slabs, valid, k))
+        if n != 1:
+            raise AssertionError(f"vdb_topk_pernode at {shape} ran {n} "
+                                 "kernels")
+    return dict(groupnorm_silu=len(VAE_RESBLOCK_SHAPES),
+                vdb_topk_pernode=len(k1))
 
 
 def gn_bound(x):
@@ -668,7 +789,7 @@ def shape_case(name: str, shape: tuple, gen, dev):
         b, t, d = shape
         x, ada = rnd(b, t, d), rnd(b, 6 * d)
         return (lambda: adaln.launch(x, ada[:, :d], ada[:, d:2 * d]),
-                bound((2 * b * t * d + 2 * b * d) * 4, 8.0 * b * t * d)[0])
+                adaln_bound(b, t, d)[0])
     if name == "groupnorm_silu":
         x, sc, bi = rnd(*shape), rnd(shape[-1]), rnd(shape[-1])
         return (lambda: groupnorm_silu.launch(x, sc, bi), gn_bound(x)[0])
@@ -1276,8 +1397,13 @@ def main() -> int:
         if launches[r["name"]] == 0:
             raise AssertionError(f"no main-path drive launched {r['name']}")
     ranking = rank_by_shape(dev)
-    log(f"[check] groupnorm_silu: one kernel per call (CUDA graph of one "
-        f"call at each of {one_launch_per_call(dev)} shapes)")
+    summary["pernode_shapes"] = {str(k): v for k, v in
+                                 check_pernode_shapes(dev).items()}
+    one = one_launch_per_call(dev)
+    log(f"[check] one kernel per call (CUDA graph of one call): "
+        f"groupnorm_silu at {one['groupnorm_silu']} shapes, "
+        f"vdb_topk_pernode at every one of the {one['vdb_topk_pernode']} "
+        f"shapes the drives ran")
 
     kernels_line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

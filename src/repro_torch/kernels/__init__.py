@@ -11,7 +11,7 @@ kernel                      route   replaces
 ``vdb_topk_sharded``        CUDA    ``repro/kernels/vdb_topk.py::vdb_topk_sharded``
 ``vdb_topk``                CUDA    ``repro/kernels/vdb_topk.py::vdb_topk``
 ``flash_attention``         CUDA    ``repro/kernels/flash_attention.py::flash_attention``
-``adaln_modulate``          Triton  ``repro/kernels/adaln.py::adaln_modulate``
+``adaln_modulate``          CUDA    ``repro/kernels/adaln.py::adaln_modulate``
 ``groupnorm_silu``          CUDA    ``repro/kernels/groupnorm_silu.py::groupnorm_silu``
 ==========================  ======  ==========================================
 

@@ -1,86 +1,102 @@
-"""Fused affine-free LayerNorm + adaLN modulation on the card (Triton).
+"""Fused affine-free LayerNorm + adaLN modulation on the card (CUDA C++).
 
 ``y = LN(x) * (1 + scale[b]) + shift[b]`` — the DiT block prologue,
-called twice per block.  Replaces the TPU kernel ``adaln_modulate``
-(body ``_adaln_kernel``) of ``repro/kernels/adaln.py``; plain version:
+called twice per block (24 calls per DiT-B/2 forward).  Replaces the TPU
+kernel ``adaln_modulate`` (body ``_adaln_kernel``) of
+``repro/kernels/adaln.py``; source ``csrc/adaln.cu``; plain version:
 :func:`repro_torch.kernels.ref.adaln_modulate_ref`.
 
 What bounds it on the card: memory — one read and one write of the
-(B, T, D) activation (2 x 8·256·768·4 B ≈ 12.6 MB at DiT-B/2, B=8),
-against a handful of operations per element.  The TPU kernel tiles
-tokens through VMEM; here one Triton program owns one token row (D ≤ a
-power-of-two block held in registers), computes the mean/variance in
-f32 and writes the modulated row — one pass, no intermediate in device
-memory.  ``triton`` is imported inside :func:`launch`, at first use, and
-keeps its compile cache under the checkout's ``build/triton`` unless
-``TRITON_CACHE_DIR`` says otherwise.
+(B, T, D) activation (2 x 256·768·4 B = 1.6 MB at DiT-B/2, B=1; 0.47 us
+at 3.35 TB/s), against a handful of operations per element.  The TPU
+kernel tiles tokens through VMEM; here one warp owns a token row, holds
+it in registers as float4s, takes the mean and the centred variance with
+fixed warp-shuffle trees (the bits of a row do not depend on the batch)
+and writes the modulated row: one pass, no shared memory, no block
+barrier.  :func:`warps_per_block` picks the block size from the number
+of rows.  CUDA C++ rather than Triton: one ctypes call, no Python
+launcher and no device context per call (PERF.md gives both per-call
+times).
 """
-import os
+from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import _build
 
-_JIT = {}
-tl = None   # triton.language, bound at first use (the kernel resolves it
-#             through this module's globals, where Triton looks names up)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+MAX_DIM = 1536                 # 12 float4 a lane (csrc/adaln.cu MAX_NV)
 
 
-def _kernel():
-    """Build the ``@triton.jit`` function once per process."""
-    global tl
-    if "adaln" not in _JIT:
-        os.environ.setdefault("TRITON_CACHE_DIR",
-                              str(_build.BUILD_DIR.parent / "triton"))
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def _adaln_kernel(x_ptr, shift_ptr, scale_ptr, out_ptr, n_tokens, dim,
-                          shift_sb, scale_sb, eps,
-                          BLOCK_D: tl.constexpr):
-            row = tl.program_id(0)                 # b * n_tokens + t
-            b = row // n_tokens
-            cols = tl.arange(0, BLOCK_D)
-            mask = cols < dim
-            x = tl.load(x_ptr + row * dim + cols, mask=mask,
-                        other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=0) / dim
-            xc = tl.where(mask, x - mean, 0.0)
-            var = tl.sum(xc * xc, axis=0) / dim
-            rstd = 1.0 / tl.sqrt(var + eps)
-            sh = tl.load(shift_ptr + b * shift_sb + cols, mask=mask, other=0.0)
-            sc = tl.load(scale_ptr + b * scale_sb + cols, mask=mask, other=0.0)
-            y = xc * rstd * (1.0 + sc) + sh
-            tl.store(out_ptr + row * dim + cols, y, mask=mask)
-
-        _JIT["adaln"] = (triton, _adaln_kernel)
-    return _JIT["adaln"]
+def _lib():
+    lib = _build.library("adaln")
+    if lib.adaln_launch.argtypes is None:
+        lib.adaln_launch.argtypes = ([_P] * 4 + [_I] * 3 + [_L] * 2
+                                     + [_I, ctypes.c_float, _P])
+        lib.adaln_launch.restype = ctypes.c_int
+    return lib
 
 
-def launch(x, shift, scale, *, eps: float = 1e-5):
-    """K5: x (B, T, D) contiguous float32 CUDA tensor; shift/scale (B, D)
-    float32 whose last axis is contiguous (row-strided views such as the
-    chunks of the DiT's adaLN projection are fine) -> (B, T, D)."""
+def warps_per_block(rows: int) -> int:
+    """Warps (rows) a block for ``rows`` = B·T token rows: two up to 1024
+    rows, so that one DiT-B/2 image (256 rows) spreads over 128 blocks,
+    four above (the sweep in ``tools/kernel_diag.py``)."""
+    return 2 if rows <= 1024 else 4
+
+
+def _refuse(x, shift, scale):
     for name, t in (("x", x), ("shift", shift), ("scale", scale)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+
+
+def _row_view(name, m, b, d):
+    """(data pointer, row stride) of a (B, D) view with a contiguous last
+    axis, 16-byte aligned, whose row stride is a multiple of 4."""
+    st, ptr = m.stride(), m.data_ptr()
+    if m.shape != (b, d) or st[1] != 1:
+        raise ValueError(f"{name} must be (B, D) = {(b, d)} with a "
+                         f"contiguous last axis, got {tuple(m.shape)}")
+    if st[0] % 4 or ptr % 16:
+        raise ValueError(f"{name} must be 16-byte aligned with a row "
+                         f"stride that is a multiple of 4")
+    return ptr, st[0]
+
+
+def launch(x, shift, scale, *, eps: float = 1e-5):
+    """K5: x (B, T, D) contiguous float32 CUDA tensor; shift/scale (B, D)
+    float32 whose last axis is contiguous (row-strided views such as the
+    chunks of the DiT's adaLN projection are fine) -> (B, T, D).  D must
+    be a multiple of 4 and at most ``MAX_DIM``; every pointer 16-byte
+    aligned and every row stride a multiple of 4.  The checks take the
+    fewest tensor attribute reads that decide them: at B=1 the host's
+    time per call is most of what a caller waits for."""
+    f32 = torch.float32
+    if not (x.is_cuda and shift.is_cuda and scale.is_cuda and x.dtype == f32
+            and shift.dtype == f32 and scale.dtype == f32):
+        _refuse(x, shift, scale)
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (B, T, D) tensor")
     b, t, d = x.shape
-    for name, m in (("shift", shift), ("scale", scale)):
-        if tuple(m.shape) != (b, d) or m.stride(1) != 1:
-            raise ValueError(f"{name} must be (B, D) = {(b, d)} with a "
-                             f"contiguous last axis, got {tuple(m.shape)}")
-    triton, kernel = _kernel()
+    if d % 4 or not 0 < d <= MAX_DIM:
+        raise ValueError(f"D must be a multiple of 4 and at most {MAX_DIM}, "
+                         f"got {d}")
+    sh_ptr, sh_sb = _row_view("shift", shift, b, d)
+    sc_ptr, sc_sb = _row_view("scale", scale, b, d)
+    x_ptr = x.data_ptr()
+    if b * t == 0 or x_ptr % 16:
+        raise ValueError("x must be non-empty and 16-byte aligned")
     out = torch.empty_like(x)
-    block_d = triton.next_power_of_2(d)
-    with torch.cuda.device(x.device):
-        kernel[(b * t,)](x, shift, scale, out, t, d, shift.stride(0),
-                         scale.stride(0), eps, BLOCK_D=block_d,
-                         num_warps=4 if block_d <= 1024 else 8)
+    err = _lib().adaln_launch(
+        x_ptr, sh_ptr, sc_ptr, out.data_ptr(), b, t, d, sh_sb, sc_sb,
+        warps_per_block(b * t), eps, _build.stream(x))
+    _build.check(err, "adaln_modulate")
     kernels.count_launch("adaln_modulate", (b, t, d))
     return out

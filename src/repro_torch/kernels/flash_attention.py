@@ -81,7 +81,7 @@ def launch(q, k, v, *, causal: bool = False):
     out = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.stream(q)
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq,
         sk, d, ctypes.cast(strides, _P), d ** -0.5, int(causal), stream)

@@ -98,7 +98,7 @@ def launch(x, scale, bias, *, groups: int = 32, eps: float = 1e-5):
         raise ValueError(f"need 1 <= batch <= 65535 and H*W > 0, got "
                          f"{tuple(x.shape)}")
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.stream(x)
     err = lib.groupnorm_silu_launch(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
         h * w, c, num_groups(c, groups), eps, stream)

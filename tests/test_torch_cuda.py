@@ -123,25 +123,60 @@ def test_flash_attention_on_the_dits_strided_slices(dev, b):
                                ref.flash_attention_ref(q, k, v), **TOL)
 
 
-def test_groupnorm_silu_is_one_launch(dev):
-    """Statistics, cluster merge and output in one kernel: one call,
-    captured into a CUDA graph, is one graph node."""
+def _kernels_per_call(fn) -> int:
+    """Kernels one call of ``fn`` puts on the card: the call captured into
+    a CUDA graph, whose nodes ``cuGraphGetNodes`` counts."""
     import ctypes
     libcuda = ctypes.CDLL("libcuda.so.1")
     libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.POINTER(ctypes.c_size_t)]
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = ctypes.c_size_t(0)
+    assert libcuda.cuGraphGetNodes(graph.raw_cuda_graph(), None,
+                                   ctypes.byref(n)) == 0
+    return n.value
+
+
+def test_groupnorm_silu_is_one_launch(dev):
+    """Statistics, cluster merge and output in one kernel: one call,
+    captured into a CUDA graph, is one graph node."""
     for shape in ((1, 32, 32, 512), (1, 256, 256, 128), (2, 9, 7, 48)):
         x = torch.randn(shape, device=dev)
         sc = torch.ones((shape[-1],), device=dev)
-        groupnorm_silu.launch(x, sc, sc)
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
-            groupnorm_silu.launch(x, sc, sc)
-        n = ctypes.c_size_t(0)
-        assert libcuda.cuGraphGetNodes(graph.raw_cuda_graph(), None,
-                                       ctypes.byref(n)) == 0
-        assert n.value == 1
+        assert _kernels_per_call(lambda: groupnorm_silu.launch(x, sc, sc)) \
+            == 1
+
+
+@pytest.mark.parametrize("cap", [1, 63, 400, 4096])
+@pytest.mark.parametrize("k", [1, 32])
+@pytest.mark.parametrize("qn", [1, 2, 3, 8, 17])
+def test_vdb_topk_pernode_clustered_matches_plain(dev, cap, k, qn):
+    """The clustered K1 scan at capacities of one tile, a ragged tile,
+    the serving fleet's 400 and a loop over tiles per block; exact ties
+    that straddle block boundaries, an empty node, masked rows."""
+    if k > cap:
+        pytest.skip("k exceeds the candidates per node")
+    q, slabs, valid, _ = _scan_case(dev, qn, 4, cap, 512 if cap <= 400
+                                    else 128, qn * 31 + cap + k)
+    got = vdb_topk.launch_pernode(q, slabs, valid, k)
+    _same_topk(got, ref.vdb_topk_pernode_ref(q, slabs, valid, k))
+    # the same bits on a second run
+    again = vdb_topk.launch_pernode(q, slabs, valid, k)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_vdb_topk_pernode_is_one_launch(dev):
+    """Scan and merge in one kernel, with no scratch allocation: one call,
+    captured into a CUDA graph, is one graph node."""
+    for qn, cap, d, k in ((8, 400, 512, 8), (1, 400, 512, 5),
+                          (17, 130, 64, 32), (3, 4096, 128, 8)):
+        q, slabs, valid, _ = _scan_case(dev, qn, 4, cap, d, cap)
+        assert _kernels_per_call(
+            lambda: vdb_topk.launch_pernode(q, slabs, valid, k)) == 1
 
 
 @pytest.mark.parametrize("b,t,d", [(1, 1, 4), (3, 77, 100), (8, 256, 768),
@@ -153,6 +188,38 @@ def test_adaln_matches_plain(dev, b, t, d):
     torch.testing.assert_close(adaln.launch(x, ada[:, :d], ada[:, d:]),
                                ref.adaln_modulate_ref(x, ada[:, :d],
                                                       ada[:, d:]), **TOL)
+
+
+@pytest.mark.parametrize("b,d", [(1, 768), (2, 768), (4, 768), (8, 768),
+                                 (2, 1152)])
+def test_adaln_on_the_dits_chunk_views(dev, b, d):
+    """shift and scale as every DiT block passes them (chunks of the
+    (B, 6·D) adaLN projection, row stride 6·D) at the serving batches and
+    at DiT-XL's width; a row gives the same bits alone and in the
+    batch."""
+    g = torch.Generator().manual_seed(b * d)
+    x = (torch.randn((b, 256, d), generator=g) * 2 + 0.5).to(dev)
+    ada = torch.randn((b, 6 * d), generator=g).to(dev)
+    sh, sc = ada[:, 3 * d:4 * d], ada[:, 4 * d:5 * d]
+    got = adaln.launch(x, sh, sc)
+    torch.testing.assert_close(got, ref.adaln_modulate_ref(x, sh, sc), **TOL)
+    alone = adaln.launch(x[-1:].contiguous(), sh[-1:], sc[-1:])
+    assert torch.equal(alone, got[-1:])
+    assert torch.equal(adaln.launch(x[:, 7:8].contiguous(), sh, sc),
+                       got[:, 7:8])
+
+
+def test_adaln_refuses_what_it_cannot_take(dev):
+    x = torch.randn((1, 4, 770), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        adaln.launch(x, x[:, 0], x[:, 1])
+    x = torch.randn((1, 4, adaln.MAX_DIM + 4), device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        adaln.launch(x, x[:, 0], x[:, 1])
+    y = torch.randn((2, 8, 64), device=dev)
+    ada = torch.randn((2, 130), device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        adaln.launch(y, ada[:, 1:65], ada[:, 65:129])
 
 
 def test_wrappers_count_launches_and_refuse_bad_input(dev):

@@ -15,6 +15,19 @@ PyTorch on the CPU and held against the JAX package's Pallas kernels
   merge trees (Chan's formula) over lanes, channels and the cluster's
   blocks.  The partition depends on (H·W, C, groups) only, so an image
   gives the same bits alone and in a batch.
+* adaLN modulation (K5, ``csrc/adaln.cu``): one warp a token row, lane l
+  holding float4 columns l, l + 32, ..; four column sums a lane (x, y,
+  z, w) combined as (x + y) + (z + w), then a ``__shfl_xor`` butterfly,
+  for the mean and for the centred variance.  Nothing depends on the batch, so a row gives the same bits
+  alone and in a batch.
+* Per-node scan (K1, ``csrc/vdb_topk.cu``, clustered): scores in the
+  lanes' order, the launcher's partition of a node's capacity rows over a
+  cluster's blocks (``vdb_topk.pernode_plan``), tiles of 32 candidates
+  taken into a running top-32 by a warp bitonic sort and merge (skipped
+  when no candidate beats the current k-th), and the blocks' lists merged
+  in the fixed binary tree.  Slot ids must equal the Pallas kernel's
+  exactly: exact ties straddling block boundaries, masked rows, an empty
+  node, ragged chunks, k up to 32.
 
 The emulations live here, not on the main path.  Tolerance: the kernel
 tests' 2e-5 (``_torch_parity.KERNEL_TOL``)."""
@@ -27,8 +40,13 @@ import pytest
 import torch
 
 from _torch_parity import KERNEL_TOL
+from repro.kernels import ref as jref
+from repro.kernels.adaln import adaln_modulate as jadaln
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.groupnorm_silu import groupnorm_silu as jgroupnorm_silu
+from repro.kernels.vdb_topk import vdb_topk_pernode as jpernode
+from repro_torch.kernels import adaln as tadaln
+from repro_torch.kernels import vdb_topk as tvdb
 
 LOG2E = 1.4426950408889634
 MASKED = -1e30
@@ -319,3 +337,278 @@ def test_groupnorm_silu_plan_of_the_vae_shapes(hw, c, want):
     part of their chunk twice."""
     got = plan(hw * hw, c, 32)
     assert {k: got[k] for k in want} == want
+
+
+# --------------------------------------------------------------------------
+# shared: warp arithmetic on a trailing axis of 32 lanes
+# --------------------------------------------------------------------------
+
+LANES = torch.arange(32)
+
+
+def fma(a, b, c):
+    """fmaf: one rounding of a * b + c (the product is exact in f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def butterfly(s):
+    """The fixed __shfl_xor tree: s_l + s_(l ^ off) for off = 16 .. 1."""
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[..., LANES ^ off]
+    return s
+
+
+def lanes_of(x, d4: int):
+    """x (..., 4·d4) -> (..., NV, 32, 4): lane l's float4 columns l,
+    l + 32, .. (zeros past the row), and the mask of real ones."""
+    nv = -(-d4 // 32)
+    pad = torch.zeros(x.shape[:-1] + (nv * 128,), dtype=x.dtype)
+    pad[..., :4 * d4] = x
+    real = (torch.arange(nv * 32) < d4).reshape(nv, 32)
+    return pad.reshape(x.shape[:-1] + (nv, 32, 4)), real
+
+
+# --------------------------------------------------------------------------
+# K5: warp-per-row adaLN modulation
+# --------------------------------------------------------------------------
+
+
+def emulate_adaln(x, shift, scale, eps: float = 1e-5):
+    """K5 on x (B, T, D) as ``adaln_rows`` computes each row."""
+    b, t, d = x.shape
+    v, real = lanes_of(x, d // 4)                    # (B, T, NV, 32, 4)
+    sh, _ = lanes_of(shift[:, None], d // 4)          # (B, 1, NV, 32, 4)
+    sc, _ = lanes_of(scale[:, None], d // 4)
+    a = v[:, :, 0]                                    # (B, T, 32, 4)
+    for j in range(1, v.shape[2]):
+        a = a + v[:, :, j]
+    s = (a[..., 0] + a[..., 1]) + (a[..., 2] + a[..., 3])
+    mean = butterfly(s)[..., :1] / d                  # every lane alike
+    xc = v - mean[..., None, None]
+    q = torch.zeros((b, t, 32, 4))
+    for j in range(v.shape[2]):
+        q = torch.where(real[j][:, None], fma(xc[:, :, j], xc[:, :, j], q),
+                        q)
+    s2 = (q[..., 0] + q[..., 1]) + (q[..., 2] + q[..., 3])
+    var = butterfly(s2)[..., :1] / d
+    rstd = 1.0 / torch.sqrt(var + eps)
+    y = fma(xc * rstd[..., None, None], 1.0 + sc, sh)
+    return y.reshape(b, t, -1)[..., :d]
+
+
+def _adaln_inputs(b, t, d, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(b, t, d)) * 2 + 0.5).astype(np.float32)
+    ada = rng.normal(size=(b, 6 * d)).astype(np.float32)
+    return x, ada[:, :d].copy(), ada[:, d:2 * d].copy()
+
+
+@pytest.mark.parametrize("b,t,d", [
+    (2, 16, 768),      # DiT-B/2 width: 6 float4 a lane, no masked lane
+    (1, 5, 1152),      # DiT-XL: 9 float4 a lane
+    (3, 7, 100),       # 25 float4: 7 lanes masked
+    (2, 3, 1536)])     # the kernel's widest row, 12 float4 a lane
+def test_adaln_emulation_matches_pallas(b, t, d):
+    x, sh, sc = _adaln_inputs(b, t, d, seed=b * t + d)
+    want = np.asarray(jadaln(*map(jnp.asarray, (x, sh, sc)),
+                             interpret=True))
+    got = emulate_adaln(*map(torch.from_numpy, (x, sh, sc)))
+    np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
+
+
+def test_adaln_row_bits_do_not_depend_on_the_batch():
+    x, sh, sc = (torch.from_numpy(a) for a in _adaln_inputs(4, 9, 768, 3))
+    batch = emulate_adaln(x, sh, sc)
+    for i in range(4):
+        assert torch.equal(emulate_adaln(x[i:i + 1], sh[i:i + 1],
+                                         sc[i:i + 1]), batch[i:i + 1])
+    assert torch.equal(emulate_adaln(x[:, 5:6], sh, sc), batch[:, 5:6])
+
+
+@pytest.mark.parametrize("rows,want", [(256, 2), (512, 2), (1024, 2),
+                                       (2048, 4)])
+def test_adaln_block_size_rule(rows, want):
+    """Two warps (rows) a block up to B=4 of DiT-B/2 (256 rows fill 128
+    blocks), four above."""
+    assert tadaln.warps_per_block(rows) == want
+
+
+# --------------------------------------------------------------------------
+# K1: clustered per-node scan
+# --------------------------------------------------------------------------
+
+EMPTY_SLOT = 2 ** 31 - 1
+
+
+def lane_scores(q, slabs):
+    """(P, N, Q, cap) cosine scores as both scan paths form them: lane l
+    runs fmaf over the float4 columns l, l + 32, .. (x, y, z, w), then
+    the butterfly."""
+    d4 = slabs.shape[-1] // 4
+    rv, _ = lanes_of(slabs, d4)                      # (P, N, cap, NV, 32, 4)
+    qv, _ = lanes_of(q, d4)                          # (Q, NV, 32, 4)
+    rv = rv[:, :, None]                              # (P, N, 1, cap, ...)
+    qv = qv[None, None, :, None]                     # (1, 1, Q, 1, ...)
+    acc = torch.zeros(rv.shape[:3] + (slabs.shape[2], 32))
+    acc = acc.expand(slabs.shape[0], slabs.shape[1], q.shape[0], -1,
+                     -1).contiguous()
+    for j in range(rv.shape[-3]):
+        for c in range(4):
+            acc = fma(rv[..., j, :, c], qv[..., j, :, c], acc)
+    return butterfly(acc)[..., 0]
+
+
+def better(s1, i1, s2, i2):
+    return (s1 > s2) | ((s1 == s2) & (i1 < i2))
+
+
+def cmpx(s, i, stride: int, keep_better):
+    ps, pi = s[..., LANES ^ stride], i[..., LANES ^ stride]
+    take = torch.where(keep_better, better(ps, pi, s, i),
+                       better(s, i, ps, pi))
+    return torch.where(take, ps, s), torch.where(take, pi, i)
+
+
+def warp_sort(s, i):
+    size = 2
+    while size <= 32:
+        stride = size // 2
+        while stride:
+            s, i = cmpx(s, i, stride, ((LANES & stride) == 0)
+                        == ((LANES & size) == 0))
+            stride //= 2
+        size *= 2
+    return s, i
+
+
+def warp_merge(ls, li, cs, ci):
+    rs, ri = cs[..., 31 - LANES], ci[..., 31 - LANES]
+    take = better(rs, ri, ls, li)
+    ls, li = torch.where(take, rs, ls), torch.where(take, ri, li)
+    for stride in (16, 8, 4, 2, 1):
+        ls, li = cmpx(ls, li, stride, (LANES & stride) == 0)
+    return ls, li
+
+
+def emulate_pernode(q, slabs, valid, k: int):
+    """K1 as ``pernode_fused`` computes it, every (plane, node, query) at
+    once: the plan's blocks scan their chunks tile by tile, then the
+    blocks' top-k lists merge in the binary tree."""
+    n_idx, n_nodes, cap, d = slabs.shape
+    plan = tvdb.pernode_plan(q.shape[0], cap, d)
+    scores = lane_scores(q, slabs)
+    nodes = torch.arange(n_nodes)[None, :, None, None]
+    lead = scores.shape[:3]
+    lists = []
+    for r in range(plan["cluster_blocks"]):
+        r0 = min(r * plan["block_rows"], cap)
+        r1 = min(r0 + plan["block_rows"], cap)
+        ls = torch.full(lead + (32,), float("-inf"))
+        li = torch.full(lead + (32,), EMPTY_SLOT, dtype=torch.int64)
+        for t, a in enumerate(range(r0, r1, 32)):
+            cols = a + LANES
+            inb = cols < r1
+            col = cols.clamp(max=cap - 1)
+            ok = valid[:, col][None, :, None, :]
+            cs = torch.where(inb, torch.where(ok, scores[..., col],
+                                              torch.tensor(-1e30)),
+                             float("-inf"))
+            ci = torch.where(inb, nodes * cap + cols,
+                             EMPTY_SLOT).expand(lead + (32,))
+            take = better(cs, ci, ls[..., k - 1:k],
+                          li[..., k - 1:k]).any(-1, keepdim=True)
+            ss, si = warp_sort(cs, ci)
+            ms, mi = (ss, si) if t == 0 else warp_merge(ls, li, ss, si)
+            ls, li = torch.where(take, ms, ls), torch.where(take, mi, li)
+        keep = LANES < k                 # a block shares its top-k only
+        lists.append((torch.where(keep, ls, float("-inf")),
+                      torch.where(keep, li, EMPTY_SLOT)))
+    while len(lists) > 1:
+        lists = [warp_merge(*lists[w], *lists[w + 1]) if w + 1 < len(lists)
+                 else lists[w] for w in range(0, len(lists), 2)]
+    s, i = lists[0]
+    return s[..., :k], i[..., :k].to(torch.int32)
+
+
+def _pernode_case(qn, nodes, cap, d, *, ties: bool, seed: int):
+    """``ties``: integer vectors, with every block's chunk repeating the
+    rows of the chunk before it, so equal scores straddle each block
+    boundary and are exact in any order; node 1 empty, other rows valid
+    with probability 0.7."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        slabs = rng.integers(-1, 2, size=(2, nodes, cap, d)).astype(
+            np.float32)
+        rows = tvdb.pernode_plan(qn, cap, d)["block_rows"]
+        for a in range(rows, cap, rows):
+            n = min(rows, cap - a)
+            slabs[:, :, a:a + n] = slabs[:, :, a - rows:a - rows + n]
+        q = rng.integers(-1, 2, size=(qn, d)).astype(np.float32)
+    else:
+        slabs = rng.normal(size=(2, nodes, cap, d)).astype(np.float32)
+        slabs /= np.linalg.norm(slabs, axis=-1, keepdims=True)
+        q = rng.normal(size=(qn, d)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    valid = rng.random((nodes, cap)) < 0.7
+    valid[1] = False
+    return q, slabs, valid
+
+
+@pytest.mark.parametrize("qn,cap,d,k", [
+    (3, 70, 64, 8),        # 3 blocks of 24, 24 and 22 rows: ragged chunks
+    (5, 300, 192, 32),     # 8 blocks of 38 rows: two tiles a block; k = 32
+    (1, 100, 16, 1),       # 4 blocks of 25; k = 1
+    (17, 40, 32, 5)])      # two query tiles; 2 blocks of 20 rows
+@pytest.mark.parametrize("ties", [True, False])
+def test_pernode_emulation_matches_pallas(qn, cap, d, k, ties):
+    """Real hits: the Pallas kernel's slots and scores.  Every position,
+    masked ones included: the JAX package's oracle's slots (the Pallas
+    kernel leaves slot 0 behind its -1e30 sentinel where a node has
+    fewer than k valid rows), with -inf where the clustered scan has
+    -1e30."""
+    q, slabs, valid = _pernode_case(qn, 3, cap, d, ties=ties,
+                                    seed=qn * 7 + cap + k)
+    want_s, want_i = (np.asarray(a) for a in jpernode(
+        *map(jnp.asarray, (q, slabs, valid)), k, interpret=True))
+    got_s, got_i = (a.numpy() for a in emulate_pernode(
+        *map(torch.from_numpy, (q, slabs, valid)), k))
+    hit = want_s > -1e29
+    np.testing.assert_array_equal(got_s > -1e29, hit)
+    np.testing.assert_array_equal(got_i[hit], want_i[hit])
+    np.testing.assert_allclose(got_s, want_s, **KERNEL_TOL)
+    ref_s, ref_i = (np.asarray(a) for a in jref.vdb_topk_pernode_ref(
+        *map(jnp.asarray, (q, slabs, valid)), k))
+    np.testing.assert_array_equal(got_i, ref_i)
+    np.testing.assert_array_equal(np.isneginf(ref_s), got_s <= -1e29)
+
+
+def test_pernode_scores_are_the_lane_order_sums():
+    """Scores within f32 rounding of the plain matmul."""
+    q, slabs, valid = _pernode_case(4, 2, 50, 192, ties=False, seed=1)
+    got = lane_scores(torch.from_numpy(q), torch.from_numpy(slabs))
+    want = torch.einsum("qd,incd->inqc", torch.from_numpy(q),
+                        torch.from_numpy(slabs))
+    torch.testing.assert_close(got, want, rtol=0, atol=KERNEL_TOL["atol"])
+
+
+@pytest.mark.parametrize("qn,cap,d,want", [
+    (8, 400, 512, dict(query_tile=8, cluster_blocks=8, block_rows=50,
+                       stages=2)),
+    (1, 400, 512, dict(query_tile=1, cluster_blocks=8, block_rows=50,
+                       stages=2)),
+    (3, 63, 512, dict(query_tile=4, cluster_blocks=2, block_rows=32,
+                      stages=1)),
+    (17, 4096, 512, dict(query_tile=16, cluster_blocks=8, block_rows=512,
+                         stages=2)),
+    (8, 1, 4, dict(query_tile=8, cluster_blocks=1, block_rows=1,
+                   stages=1))])
+def test_pernode_plan(qn, cap, d, want):
+    """The serving fleet's 4 nodes x 400 slots take clusters of 8 blocks
+    of 50 rows (64 SMs, one wave); every plan covers the capacity and
+    fits a block's shared memory."""
+    got = tvdb.pernode_plan(qn, cap, d)
+    assert {key: got[key] for key in want} == want
+    assert got["cluster_blocks"] * got["block_rows"] >= cap
+    assert got["smem_bytes"] <= tvdb.SMEM_LIMIT
+    with pytest.raises(ValueError, match="too wide"):
+        tvdb.pernode_plan(16, 64, 4096)
