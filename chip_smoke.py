@@ -16,8 +16,11 @@ failure exits nonzero (nothing is caught):
    on the same inputs on the card, at the main paths' shapes: the
    cluster scans (K1 per node, K2 masked/global) at Q=8 queries, 4 nodes
    x 400 slots x 512 dims, k=8, with a random case, an exact-tie case
-   (slot ids equal) and an empty node; the single-slab scan (K3) at q (8, 512), db (400, 512),
-   random, exact ties and every slot invalid; flash attention (K4) at
+   (slot ids equal) and an empty node, and the masked fill (a node with
+   fewer valid rows than k, node ids outside [0, 4); Q = 1, 8, and 17
+   with k = 32; slot ids equal); the single-slab scan (K3) at q (8, 512),
+   db (400, 512), random, exact ties, every slot invalid and fewer valid
+   rows than k (Q = 1, 8, 17); flash attention (K4) at
    DiT-B/2 shapes, B = 1, 2, 4, 8, with SDPA beside it; fused adaLN (K5)
    at B = 1 and 8 on the DiT's strided chunk views; GroupNorm+SiLU (K6)
    at every resblock shape of the 256 px VAE at B=8 and B=1 with its
@@ -44,8 +47,8 @@ failure exits nonzero (nothing is caught):
    ranked by launches x (device - bound).
 4. check — K1 against its plain version at every shape the drives ran
    and at each query tile (exact ties: slot ids equal); one K6 call, and
-   one K1 call at every shape the drives ran, is one kernel (its CUDA
-   graph has one node);
+   one call of K1, K2 (both modes) and K3 at every shape the drives ran,
+   is one kernel (its CUDA graph has one node);
    outputs are finite images of the right shape; the cluster
    scans and the standalone scans agree with CPU copies of the fleet;
    step level and group-continuous agree on routes, nodes, steps and
@@ -197,7 +200,7 @@ def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -320,6 +323,35 @@ def check_scans(q, slabs, valid, nids, k: int, exact: bool):
     return out
 
 
+# (node ids, k) of the masked-fill cases over scan_inputs' fleet (node 3
+# empty, node 2 cut to 3 valid rows): a query on a node with fewer than k
+# valid rows, on the empty node, and on node ids outside [0, 4)
+FILL_CASES = (([2], 8), ([2, 3, 4, -1, 0, 2, 1, 3], 8),
+              ([(j % 7) - 1 for j in range(17)], 32))
+
+
+def check_fill_rule(gen, dev) -> dict:
+    """K1 and K2 (both modes) on integer-valued inputs whose lists run out
+    of real candidates, at Q = 1, 8 and 17 (two query tiles, k = 32):
+    slot ids equal the plain version's, masked fill and out-of-range node
+    ids included."""
+    import torch
+    out = {}
+    for ids, k in FILL_CASES:
+        q, slabs, valid, _ = scan_inputs(gen, ties=True, dev=dev)
+        valid[2] = False
+        valid[2, torch.tensor([5, 200, 399])] = True
+        q = torch.randint(-1, 2, (len(ids), q.shape[1]),
+                          generator=gen).float().to(dev)
+        nids = torch.tensor(ids, dtype=torch.int32, device=dev)
+        res = check_scans(q, slabs, valid, nids, k, exact=True)
+        out[f"Q={len(ids)} k={k}"] = res
+        log(f"[kernels] vdb_topk fill rule Q={len(ids)} k={k} (node ids "
+            f"{ids}; node 2 has 3 valid rows, node 3 none): slot ids equal; "
+            + ", ".join(f"{n} err {e:.2e}" for n, (e, _) in res.items()))
+    return out
+
+
 def run_kernel_checks(dev):
     import torch
 
@@ -337,6 +369,7 @@ def run_kernel_checks(dev):
             + ", ".join(f"{n} err {e:.2e} ({d} near-tie swaps)"
                         for n, (e, d) in res.items())
             + f"; tol {KERNEL_TOL}")
+    fill = check_fill_rule(gen, dev)
     n_idx, n_nodes, cap, d = slabs.shape
     qn = q.shape[0]
     log(f"[kernels] vdb_topk_pernode plan at Q={qn}: "
@@ -359,8 +392,9 @@ def run_kernel_checks(dev):
         name="vdb_topk_sharded", route="cuda",
         source="src/repro_torch/kernels/csrc/vdb_topk.cu",
         replaces="src/repro/kernels/vdb_topk.py:209",
-        max_abs_err=max(e for n, (e, _) in list(rnd.items())
-                        + list(tie.items()) if n != "vdb_topk_pernode"),
+        max_abs_err=max(e for res in [rnd, tie, *fill.values()]
+                        for n, (e, _) in res.items()
+                        if n != "vdb_topk_pernode"),
         tol=KERNEL_TOL, bound_ms=b2[0], bound_by=b2[1],
         shape=shape + ", node-masked"),
         lambda: vdb_topk.launch_sharded(q, slabs, valid, nids, k),
@@ -504,39 +538,47 @@ def check_flash_attention(gen, dev) -> dict:
     return row
 
 
-def single_scan_inputs(gen, case: str, dev):
-    """K3 at a standalone node's size: q (8, 512), db (400, 512).
+def single_scan_inputs(gen, case: str, dev, qn: int = 8):
+    """K3 at a standalone node's size: q (qn, 512), db (400, 512).
     ``ties``: integer rows, rows 200-299 repeating rows 0-99; ``empty``:
-    every slot invalid (a node that just joined)."""
+    every slot invalid (a node that just joined); ``short``: integer rows,
+    3 valid (fewer than k, so the list ends in masked rows)."""
     import torch
-    if case == "ties":
+    if case in ("ties", "short"):
         db = torch.randint(-1, 2, (400, 512), generator=gen).float()
         db[200:300] = db[0:100]
-        q = torch.randint(-1, 2, (8, 512), generator=gen).float()
+        q = torch.randint(-1, 2, (qn, 512), generator=gen).float()
     else:
         db = torch.randn((400, 512), generator=gen)
         db /= db.norm(dim=-1, keepdim=True)
-        q = torch.randn((8, 512), generator=gen)
+        q = torch.randn((qn, 512), generator=gen)
         q /= q.norm(dim=-1, keepdim=True)
     valid = torch.rand((400,), generator=gen) < 0.7
     if case == "empty":
         valid[:] = False
+    if case == "short":
+        valid[:] = False
+        valid[torch.tensor([7, 250, 398])] = True
     return [t.to(dev) for t in (q, db, valid)]
 
 
 def check_single_scan(gen, dev, k: int) -> dict:
-    """K3 against its plain version in three cases; times the random
-    one."""
+    """K3 against its plain version: exact ties, an empty db, fewer valid
+    rows than k (at Q = 1, 8 and 17 with k = 32: two query tiles), slot
+    ids equal; random unit vectors, which it times."""
     import torch
 
     from repro_torch.kernels import ref, vdb_topk
     errs = {}
-    for case in ("ties", "empty", "random"):
-        q, db, valid = single_scan_inputs(gen, case, dev)
+    for case, qn, kk in (("ties", 8, k), ("empty", 8, k), ("short", 1, k),
+                         ("short", 8, k), ("short", 17, 32),
+                         ("random", 8, k)):
+        q, db, valid = single_scan_inputs(gen, case, dev, qn)
         full = torch.where(valid[None], q @ db.T, float("-inf"))
-        errs[case] = check_topk(f"vdb_topk {case}",
-                                vdb_topk.launch_single(q, db, valid, k),
-                                ref.vdb_topk_ref(q, db, valid, k), full, 0,
+        name = case if case != "short" else f"short Q={qn} k={kk}"
+        errs[name] = check_topk(f"vdb_topk {name}",
+                                vdb_topk.launch_single(q, db, valid, kk),
+                                ref.vdb_topk_ref(q, db, valid, kk), full, 0,
                                 KERNEL_TOL, exact=case != "random")
     torch.cuda.synchronize()
     log("[kernels] vdb_topk (single slab) " + ", ".join(
@@ -562,10 +604,12 @@ def kernels_per_call(fn) -> int:
     import ctypes
 
     import torch
-    fn()                              # set-up (attributes) outside capture
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):     # set-up (attributes, a stream's
+        fn()                          # ticket counters) outside capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         fn()
     libcuda = ctypes.CDLL("libcuda.so.1")
     libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -578,8 +622,8 @@ def kernels_per_call(fn) -> int:
 
 
 def pernode_inputs(gen, shape, *, ties: bool, dev):
-    """K1 inputs at a ``LAUNCHES_BY_SHAPE`` key (Q, P, N, cap, D, k), the
-    last node empty.  ``ties``: integer-valued vectors, the second half of
+    """K1/K2 inputs at a ``LAUNCHES_BY_SHAPE`` key (Q, P, N, cap, D, k),
+    the last node empty.  ``ties``: integer-valued vectors, the second half of
     each node's rows repeating the first, so exact ties straddle the
     blocks of a cluster; else unit vectors."""
     import torch
@@ -599,48 +643,86 @@ def pernode_inputs(gen, shape, *, ties: bool, dev):
     return [t.to(dev) for t in (q, slabs, valid)]
 
 
-def check_pernode_shapes(dev) -> dict:
-    """K1 against its plain version at every shape the main-path drives
-    launched it, and at each query tile (Q = 1, 2, 3, 8, 16, 17) at the
-    serving fleet's slab: exact ties (slot ids equal) and unit vectors
+# query counts that give each query tile of the clustered scan (1, 2, 4,
+# 8, 16) and two tiles
+TILE_QS = (1, 2, 3, 4, 8, 16, 17)
+
+
+def fill_node_ids(qn: int, n_nodes: int, dev):
+    """Node ids cycling through the empty last node, node 0, ids outside
+    [0, N) and the other nodes: lists that end in the masked fill."""
+    import torch
+    order = [n_nodes - 1, 0, n_nodes, -1, *range(1, n_nodes - 1)]
+    return torch.tensor([order[j % len(order)] for j in range(qn)],
+                        dtype=torch.int32, device=dev)
+
+
+def check_scan_shapes(dev) -> dict:
+    """K1, K2 (node-masked and global) and K3 against their plain versions
+    at every shape the main-path drives launched them, and at each query
+    tile (Q in ``TILE_QS``) at the serving fleet's slab (K1, K2) and at a
+    standalone node's db (K3): exact ties that straddle the blocks of a
+    cluster (slot ids equal; K2's node ids name the empty last node and
+    ids outside [0, N), so lists end in the masked fill) and unit vectors
     (equal but at near-ties), scores within the tolerance."""
     import torch
 
     from repro_torch.kernels import ref, vdb_topk
     gen = torch.Generator().manual_seed(13)
-    drives = set(SHAPES.get("vdb_topk_pernode", {}))
-    tiles = {(qn, 2, 4, 400, 512, 8) for qn in (1, 2, 3, 8, 16, 17)}
     out = {}
-    for shape in sorted(drives | tiles):
-        qn, n_idx, n_nodes, cap, d, k = shape
+
+    def record(kind, shape, drives, tile, res):
+        err = max(e for r in res for e, _ in r.values())
+        swaps = sum(d for _, d in res[1].values())
+        out[(kind, shape)] = dict(drives=drives, tile=tile, err=err,
+                                  near_tie_swaps=swaps)
+        log(f"[check] {', '.join(res[0])} at {shape} ("
+            + (f"drive shape of {', '.join(drives)}" if drives
+               else "tile check") + f", query tile {tile}): exact ties "
+            f"slot ids equal, unit vectors {swaps} near-tie swaps; err "
+            f"{err:.2e} (tol {KERNEL_TOL})")
+
+    names = ("vdb_topk_pernode", "vdb_topk_sharded")
+    tiles = {(qn, 2, 4, 400, 512, 8) for qn in TILE_QS}
+    for shape in sorted(set().union(*(SHAPES.get(n, {}) for n in names))
+                        | tiles):
+        qn, _, n_nodes, cap, d, k = shape
         res = []
         for ties in (True, False):
             q, slabs, valid = pernode_inputs(gen, shape, ties=ties, dev=dev)
-            full = torch.where(valid[None, :, None, :], torch.einsum(
-                "qd,incd->inqc", q, slabs), float("-inf"))
-            off = (torch.arange(n_nodes, device=dev) * cap)[None, :, None,
-                                                             None]
-            res.append(check_topk(
-                f"vdb_topk_pernode at {shape} ties={ties}",
-                vdb_topk.launch_pernode(q, slabs, valid, k),
-                ref.vdb_topk_pernode_ref(q, slabs, valid, k), full, off,
-                KERNEL_TOL, exact=ties))
-        out[shape] = dict(drive=shape in drives, tile=vdb_topk.pernode_plan(
-            qn, cap, d)["query_tile"], err=max(e for e, _ in res),
-            near_tie_swaps=res[1][1])
-        log(f"[check] vdb_topk_pernode Q={qn} slabs {(n_idx, n_nodes, cap, d)}"
-            f" k={k} ({'a drive shape' if shape in drives else 'tile check'},"
-            f" query tile {out[shape]['tile']}): exact ties slot ids equal, "
-            f"unit vectors {res[1][1]} near-tie swaps; err "
-            f"{out[shape]['err']:.2e} (tol {KERNEL_TOL})")
+            nids = fill_node_ids(qn, n_nodes, dev) if ties else \
+                torch.randint(0, n_nodes, (qn,), generator=gen,
+                              dtype=torch.int32).to(dev)
+            res.append(check_scans(q, slabs, valid, nids, k, exact=ties))
+        record("vdb_topk_pernode/sharded", shape,
+               [n for n in names if shape in SHAPES.get(n, {})],
+               vdb_topk.pernode_plan(qn, cap, d)["query_tile"], res)
+    tiles = {(qn, 400, 512, 8) for qn in TILE_QS}
+    for shape in sorted(set(SHAPES.get("vdb_topk", {})) | tiles):
+        qn, n, d, k = shape
+        res = []
+        for ties in (True, False):
+            q, slabs, valid = pernode_inputs(gen, (qn, 1, 2, n, d, k),
+                                             ties=ties, dev=dev)
+            db, ok = slabs[0, 0], valid[0]
+            res.append({"vdb_topk": check_topk(
+                f"vdb_topk at {shape} ties={ties}",
+                vdb_topk.launch_single(q, db, ok, k),
+                ref.vdb_topk_ref(q, db, ok, k),
+                torch.where(ok[None], q @ db.T, float("-inf")), 0,
+                KERNEL_TOL, exact=ties)})
+        record("vdb_topk", shape,
+               ["vdb_topk"] if shape in SHAPES.get("vdb_topk", {}) else [],
+               vdb_topk.single_plan(qn, n, d)["query_tile"], res)
     torch.cuda.synchronize()
     return out
 
 
 def one_launch_per_call(dev) -> dict:
-    """One K6 call at each B=1 resblock shape, and one K1 call at every
-    shape the main-path drives launched it, must be exactly one kernel
-    (no statistics, merge or scratch launches)."""
+    """One K6 call at each B=1 resblock shape, and one call of K1, of K2
+    (node-masked and global) and of K3 at every shape the main-path drives
+    launched it, must be exactly one kernel (no statistics, merge or
+    scratch launches)."""
     import torch
 
     from repro_torch.kernels import groupnorm_silu, vdb_topk
@@ -661,8 +743,30 @@ def one_launch_per_call(dev) -> dict:
         if n != 1:
             raise AssertionError(f"vdb_topk_pernode at {shape} ran {n} "
                                  "kernels")
+    k2 = sorted(SHAPES.get("vdb_topk_sharded", {}))
+    for shape in k2:
+        q, slabs, valid = pernode_inputs(gen, shape, ties=False, dev=dev)
+        k = shape[-1]
+        nids = torch.randint(0, shape[2], (shape[0],), generator=gen,
+                             dtype=torch.int32).to(dev)
+        for mask in (True, False):
+            n = kernels_per_call(lambda: vdb_topk.launch_sharded(
+                q, slabs, valid, nids, k, mask_nodes=mask))
+            if n != 1:
+                raise AssertionError(f"vdb_topk_sharded (mask_nodes={mask})"
+                                     f" at {shape} ran {n} kernels")
+    k3 = sorted(SHAPES.get("vdb_topk", {}))
+    for qn, n_rows, d, k in k3:
+        q = torch.randn((qn, d), generator=gen).to(dev)
+        db = torch.randn((n_rows, d), generator=gen).to(dev)
+        valid = (torch.rand((n_rows,), generator=gen) < 0.7).to(dev)
+        n = kernels_per_call(lambda: vdb_topk.launch_single(q, db, valid, k))
+        if n != 1:
+            raise AssertionError(f"vdb_topk at {(qn, n_rows, d, k)} ran {n} "
+                                 "kernels")
     return dict(groupnorm_silu=len(VAE_RESBLOCK_SHAPES),
-                vdb_topk_pernode=len(k1))
+                vdb_topk_pernode=len(k1), vdb_topk_sharded=len(k2),
+                vdb_topk=len(k3))
 
 
 def gn_bound(x):
@@ -1397,13 +1501,17 @@ def main() -> int:
         if launches[r["name"]] == 0:
             raise AssertionError(f"no main-path drive launched {r['name']}")
     ranking = rank_by_shape(dev)
-    summary["pernode_shapes"] = {str(k): v for k, v in
-                                 check_pernode_shapes(dev).items()}
+    summary["scan_shapes"] = {str(k): v for k, v in
+                              check_scan_shapes(dev).items()}
     one = one_launch_per_call(dev)
     log(f"[check] one kernel per call (CUDA graph of one call): "
-        f"groupnorm_silu at {one['groupnorm_silu']} shapes, "
-        f"vdb_topk_pernode at every one of the {one['vdb_topk_pernode']} "
-        f"shapes the drives ran")
+        f"groupnorm_silu at {one['groupnorm_silu']} shapes; at every shape "
+        f"the drives ran: vdb_topk_pernode at {one['vdb_topk_pernode']}, "
+        f"vdb_topk_sharded (node-masked and global) at "
+        f"{one['vdb_topk_sharded']}, vdb_topk at {one['vdb_topk']}")
+    for name in ("vdb_topk_pernode", "vdb_topk_sharded", "vdb_topk"):
+        if one[name] == 0:
+            raise AssertionError(f"no drive shape of {name} to check")
 
     kernels_line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

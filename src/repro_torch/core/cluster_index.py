@@ -20,7 +20,8 @@ its scheduled node's slab (K2, ``vdb_topk_sharded`` with the query→node
 mask), ``search_cluster`` gives one global candidate list per query (K2
 unmasked), and ``search_cluster_nodes`` a top-k PER node per query (K1,
 ``vdb_topk_pernode`` — the scan score-aware scheduling issues once per
-micro-batch and the Retrieve stage reuses).  With ``use_pallas`` (the
+micro-batch and the Retrieve stage reuses); each is one launch of the
+clustered scan in ``kernels/csrc/vdb_topk.cu``.  With ``use_pallas`` (the
 port's default) the scans go through
 :mod:`repro_torch.kernels.ops`, i.e. the CUDA kernels for a CUDA index
 and the plain versions for a CPU one; ``use_pallas=False`` runs the

@@ -49,8 +49,8 @@ def _same_topk(got, want):
 
 
 @pytest.mark.parametrize("qn,nodes,cap,d,k", [
-    (1, 1, 1, 4, 1), (8, 4, 400, 512, 8), (17, 3, 130, 64, 32),
-    (40, 2, 64, 128, 5)])
+    (1, 1, 1, 4, 1), (4, 4, 400, 512, 8), (8, 4, 400, 512, 8),
+    (17, 3, 130, 64, 32), (40, 2, 64, 128, 5)])
 def test_vdb_topk_kernels_match_plain(dev, qn, nodes, cap, d, k):
     q, slabs, valid, nids = _scan_case(dev, qn, nodes, cap, d, qn + cap)
     _same_topk(vdb_topk.launch_pernode(q, slabs, valid, k),
@@ -63,7 +63,8 @@ def test_vdb_topk_kernels_match_plain(dev, qn, nodes, cap, d, k):
 
 
 @pytest.mark.parametrize("qn,n,d,k,empty", [
-    (1, 1, 4, 1, False), (8, 400, 512, 8, False), (8, 400, 512, 8, True),
+    (1, 1, 4, 1, False), (3, 400, 512, 8, False), (5, 400, 512, 8, False),
+    (8, 400, 512, 8, False), (8, 400, 512, 8, True),
     (5, 30, 16, 30, False), (17, 130, 64, 32, False)])
 def test_vdb_topk_single_matches_plain(dev, qn, n, d, k, empty):
     q, slabs, valid, _ = _scan_case(dev, qn, 2, n, d, qn + n + d)
@@ -71,6 +72,107 @@ def test_vdb_topk_single_matches_plain(dev, qn, n, d, k, empty):
     valid = valid[1] if not empty else valid[0]
     _same_topk(vdb_topk.launch_single(q, db, valid, k),
                ref.vdb_topk_ref(q, db, valid, k))
+
+
+def _fill_case(dev, qn, nodes, cap, d, seed):
+    """_scan_case with node 1 cut to 3 valid rows (fewer than k) and node
+    ids that include the empty node 0, node 1 and ids outside [0, N)."""
+    q, slabs, valid, _ = _scan_case(dev, qn, nodes, cap, d, seed)
+    valid[1] = False
+    valid[1, torch.tensor([0, cap // 2, cap - 1])] = True
+    nids = (torch.arange(qn, dtype=torch.int32) % (nodes + 2) - 1).to(dev)
+    return q, slabs, valid, nids
+
+
+@pytest.mark.parametrize("cap,d", [(9, 16), (400, 512), (4096, 128)])
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("qn", [1, 2, 4, 8, 17])
+@pytest.mark.parametrize("mask", [True, False])
+def test_vdb_topk_sharded_fill_rule_matches_plain(dev, mask, qn, k, cap, d):
+    """K2 where lists run out of real candidates: the masked fill of a
+    node with fewer than k valid rows (other nodes' slots in ascending
+    order, read from no slab), an empty node, node ids outside [0, N),
+    two query tiles (Q = 17), k up to 32 (above a node's capacity of 9)
+    and 4096 slots a node; exact ties; the same bits on a second run (the
+    global scan's tickets start from zero every launch)."""
+    q, slabs, valid, nids = _fill_case(dev, qn, 4, cap, d, qn * 7 + cap + k)
+    got = vdb_topk.launch_sharded(q, slabs, valid, nids, k, mask_nodes=mask)
+    _same_topk(got, ref.vdb_topk_sharded_ref(q, slabs, valid, nids, k,
+                                             mask_nodes=mask))
+    again = vdb_topk.launch_sharded(q, slabs, valid, nids, k,
+                                    mask_nodes=mask)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("n,d", [(400, 512), (1025, 64), (4096, 128)])
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("qn", [1, 4, 8, 17])
+def test_vdb_topk_single_fill_rule_matches_plain(dev, qn, k, n, d):
+    """K3 on the clustered scan: a db with 3 valid rows (the list ends in
+    masked rows by row id), two query tiles, k up to 32; 1025 and 4096
+    rows split into nodes (the last one short at 1025) and merged."""
+    q, slabs, valid, _ = _fill_case(dev, qn, 2, n, d, qn + n + k)
+    db, ok = slabs[1, 1], valid[1]
+    _same_topk(vdb_topk.launch_single(q, db, ok, k),
+               ref.vdb_topk_ref(q, db, ok, k))
+
+
+def test_vdb_topk_sharded_and_single_are_one_launch(dev):
+    """K2 (both modes) and K3: scan, fill and merges in one kernel, with no
+    allocation the graph would capture: one call is one graph node."""
+    for qn, cap, d, k in ((8, 400, 512, 8), (1, 400, 512, 5),
+                          (17, 130, 64, 32), (3, 4096, 128, 8)):
+        q, slabs, valid, nids = _fill_case(dev, qn, 4, cap, d, cap)
+        for mask in (True, False):
+            assert _kernels_per_call(lambda: vdb_topk.launch_sharded(
+                q, slabs, valid, nids, k, mask_nodes=mask)) == 1
+        assert _kernels_per_call(lambda: vdb_topk.launch_single(
+            q, slabs[0, 1], valid[1], k)) == 1
+
+
+def test_vdb_topk_merging_scans_keep_tickets_per_stream(dev):
+    """The global K2 and a split K3 take their ticket counters from the
+    stream they run on: the same launches queued on two streams at once
+    give the plain version's lists, and a launch that would need more
+    than ``MAX_TICKETS`` counters raises."""
+    q, slabs, valid, nids = _fill_case(dev, 17, 4, 400, 512, 5)
+    want2 = ref.vdb_topk_sharded_ref(q, slabs, valid, nids, 8,
+                                     mask_nodes=False)
+    q3, slabs3, valid3, _ = _scan_case(dev, 8, 2, 1025, 64, 6)
+    db3, ok3 = slabs3[1, 1], valid3[1]          # split into 3 nodes
+    want3 = ref.vdb_topk_ref(q3, db3, ok3, 8)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(20):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append((vdb_topk.launch_sharded(
+                    q, slabs, valid, nids, 8, mask_nodes=False),
+                    vdb_topk.launch_single(q3, db3, ok3, 8)))
+    torch.cuda.synchronize()
+    for k2, k3 in got:
+        _same_topk(k2, want2)
+        _same_topk(k3, want3)
+    with pytest.raises(ValueError, match="ticket counters"):
+        vdb_topk._tickets(dev, vdb_topk.MAX_TICKETS + 1)
+
+
+def test_vdb_topk_clustered_scans_refuse_too_wide_dims(dev):
+    """K2 and K3 run on the clustered plan and raise where it cannot take
+    a shape (no fallback)."""
+    d = 1172                         # above the plan's 1168 at 16 queries
+    q = torch.randn((16, d), device=dev)
+    with pytest.raises(ValueError, match="too wide"):
+        vdb_topk.launch_single(q, torch.randn((64, d), device=dev),
+                               torch.ones((64,), dtype=torch.bool,
+                                          device=dev), 4)
+    with pytest.raises(ValueError, match="too wide"):
+        vdb_topk.launch_sharded(q, torch.randn((1, 2, 64, d), device=dev),
+                                torch.ones((2, 64), dtype=torch.bool,
+                                           device=dev),
+                                torch.zeros((16,), dtype=torch.int32,
+                                            device=dev), 4)
 
 
 # the 256 px VAE's resblock shapes at B = 1 and 8 ((128, 256) and
@@ -130,10 +232,12 @@ def _kernels_per_call(fn) -> int:
     libcuda = ctypes.CDLL("libcuda.so.1")
     libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.POINTER(ctypes.c_size_t)]
-    fn()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):     # set-up (attributes, a stream's
+        fn()                          # ticket counters) outside capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         fn()
     n = ctypes.c_size_t(0)
     assert libcuda.cuGraphGetNodes(graph.raw_cuda_graph(), None,

@@ -78,6 +78,60 @@ def test_sharded_ref_matches_jax(mask_nodes, ties, k):
     _assert_topk_equal(got, want)
 
 
+# node ids of the fill-rule cases, over _slabs_case's 3 nodes (node 1 all
+# invalid, node 2 with 2 valid rows)
+_FILL_CASES = {
+    "short node": (np.array([2, 2, 0, 2], np.int32), 8),
+    "empty node": (np.array([1, 0, 1, 1], np.int32), 5),
+    "out of range": (np.array([3, -1, 0, 7], np.int32), 6),
+    "k32 Q17": (np.arange(17, dtype=np.int32) % 5 - 1, 32),
+}
+
+
+def _fill_rule(valid, nid: int, k: int):
+    """The masked fill of a node-masked list, from its definition: the
+    node's valid rows come first (by score); the rest of the list is the
+    other slots of the plane, the node's invalid rows included, in
+    ascending global slot order."""
+    n_nodes, cap = valid.shape
+    own = np.zeros_like(valid)
+    if 0 <= nid < n_nodes:
+        own[nid] = valid[nid]
+    n_real = int(own.sum())
+    return n_real, np.flatnonzero(~own.reshape(-1))[:max(k - n_real, 0)]
+
+
+@pytest.mark.parametrize("case", sorted(_FILL_CASES))
+@pytest.mark.parametrize("mask_nodes", [True, False])
+def test_sharded_ref_fill_rule_matches_jax(case, mask_nodes):
+    """Lists that run out of real candidates (a node with fewer than k
+    valid rows, an empty node, a node id outside [0, N), k = 32 at Q = 17)
+    on integer-valued inputs: ids equal JAX's, and the node-masked fill
+    is the plane's other slots in ascending order."""
+    q, slabs, valid = _slabs_case(5, ties=True)
+    node_ids, k = _FILL_CASES[case]
+    if len(node_ids) != len(q):
+        q = np.random.default_rng(6).integers(
+            -1, 2, size=(len(node_ids), q.shape[1])).astype(np.float32)
+    got = tref.vdb_topk_sharded_ref(
+        torch.from_numpy(q), torch.from_numpy(slabs),
+        torch.from_numpy(valid), torch.from_numpy(node_ids), k,
+        mask_nodes=mask_nodes)
+    want = jref.vdb_topk_sharded_ref(
+        jnp.asarray(q), jnp.asarray(slabs), jnp.asarray(valid),
+        jnp.asarray(node_ids), k, mask_nodes=mask_nodes)
+    _assert_topk_equal(got, want)
+    if not mask_nodes:
+        return
+    s, i = (x.numpy() for x in got)
+    for row, nid in enumerate(node_ids):
+        n_real, fill = _fill_rule(valid, int(nid), k)
+        assert np.isfinite(s[:, row, :n_real]).all()
+        assert np.isneginf(s[:, row, n_real:]).all()
+        for plane in range(s.shape[0]):
+            np.testing.assert_array_equal(i[plane, row, n_real:], fill)
+
+
 def test_single_slab_ref_matches_jax():
     q, slabs, valid = _slabs_case(2, ties=True)
     got = tref.vdb_topk_ref(torch.from_numpy(q), torch.from_numpy(slabs[0, 0]),

@@ -18,6 +18,8 @@ Tolerances: one network pass or a few DDIM steps to 1e-5 / 1e-4 of the
 output scale, as in ``tests/test_torch_dit_vae.py``."""
 from __future__ import annotations
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,6 +43,7 @@ from repro_torch.data.synthetic import render_caption
 from repro_torch.launch.serve import build_system
 from repro_torch.models.diffusion import sampler as tsampler
 from repro_torch.models.diffusion.dit import make_eps_fn
+from repro_torch.runtime import serving
 from repro_torch.runtime.serving import (DiffusionBackend,
                                          DiffusionSlotEngine,
                                          EmulatedSlotEngine, ServingEngine)
@@ -216,9 +219,26 @@ def jax_sequential():
     return _outcome(results, system)
 
 
+def _tick_clock(tick: float = 1e-6):
+    """A stand-in for the ``time`` module whose ``perf_counter`` advances
+    ``tick`` seconds per reading: every pass of ``ServingEngine.run`` then
+    takes the same virtual time however loaded the machine is."""
+    now = [0.0]
+
+    def perf_counter() -> float:
+        now[0] += tick
+        return now[0]
+    return types.SimpleNamespace(perf_counter=perf_counter)
+
+
 @pytest.mark.parametrize("mode,cap", [("continuous", None), ("drain", None),
                                       ("step", 4), ("step", 13)])
-def test_run_modes_equal_jax_sequential(jax_sequential, mode, cap):
+def test_run_modes_equal_jax_sequential(jax_sequential, mode, cap,
+                                        monkeypatch):
+    """The engine's virtual clock advances by measured pass times, so the
+    batching would follow the machine's load; a fixed tick per clock
+    reading gives the batching of a fast machine on every run."""
+    monkeypatch.setattr(serving, "time", _tick_clock())
     system = _null_system(build_system, device="cpu")
     engine = ServingEngine(system, max_batch=8)
     arrivals = poisson_arrivals(_TRACE, 60.0, seed=3)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Diagnostics of the port's redesigned kernels K1, K4, K5 and K6 on one
-NVIDIA GPU, from variants of their sources.
+"""Diagnostics of the port's redesigned kernels K1-K6 on one NVIDIA GPU,
+from variants of their sources.
 
-    python3 tools/kernel_diag.py [--only k1|k4|k5|k6] [--out diag.json]
+    python3 tools/kernel_diag.py [--only k1|k2|k3|k4|k5|k6] [--out diag.json]
 
 Run from the root of a checkout.  The variants are generated from
 ``src/repro_torch/kernels/csrc`` by text substitution, built with nvcc
@@ -33,19 +33,27 @@ changes.
   768) matmul, where a dependent launch could hide its set-up.  Then the
   shipped kernel at 1, 2, 4 and 8 warps (rows) a block.
 * K1 (``vdb_topk.cu``): the clustered one-launch scan against the
-  two-pass scan it replaced (``vdb_topk_launch`` with ``per_node``, kept
-  in the library) and against ``argmax`` (the clustered scan with k
-  rounds of warp arg-max over the running list and a tile instead of the
-  bitonic sort and merge), at 2 planes x 4 nodes x 400 slots x 512 dims,
-  k = 8, Q = 1..8 (the serving shapes), and at 4096 slots a node; the
-  clustered scan's bits must equal the two-pass scan's.  Then the
-  clustered scan at every cluster size of {1, 2, 4, 8, 13, 16} (Q = 1
-  and 8 at 400 slots, Q = 8 at 4096; ``wide``: the shipped source, which
-  stops at the portable 8, taking non-portable clusters of up to 16),
-  with how many of its clusters fit on the card at once, and a traced
-  copy of ``wide`` (``%globaltimer`` at each phase
-  of every block, ``%smid``) at 400 slots, Q = 1 and 8, clusters of the
-  plan's size, 8 and 16.
+  two-pass template it replaced (``TEMPLATE_SOURCE`` below, with
+  ``per_node``) and against ``argmax`` (the clustered scan with k rounds
+  of warp arg-max over the running list and a tile instead of the bitonic
+  sort and merge), at 2 planes x 4 nodes x 400 slots x 512 dims, k = 8,
+  Q = 1..8 (the serving shapes), and at 4096 slots a node; the clustered
+  scan's bits must equal the template's.  Then the clustered scan at
+  every cluster size of {1, 2, 4, 8, 13, 16} (Q = 1 and 8 at 400 slots,
+  Q = 8 at 4096; ``wide``: the shipped source, which stops at the
+  portable 8, taking non-portable clusters of up to 16), with how many of
+  its clusters fit on the card at once, and a traced copy of ``wide``
+  (``%globaltimer`` at each phase of every block, ``%smid``) at 400
+  slots, Q = 1 and 8, clusters of the plan's size, 8 and 16.
+* K2 (``vdb_topk.cu``, ``vdb_topk_sharded_launch``): node-masked and
+  global against the template, at Q = 1, 2, 8, 17 over 2 x 4 x 400 x 512
+  and Q = 8 over 2 x 4 x 4096 x 512; the global scan also as design (b),
+  one cluster per (plane, query tile) spanning every node's rows, with
+  clusters of up to 8 and of 16.  Same bits as the template required.
+* K3 (``vdb_topk_single_launch``): against the template's per-node scan
+  of one plane and one node, Q = 1 and 8 over 400 x 512 and 4096 x 512;
+  then with the db split into nodes of at most 128-1024 rows, one cluster
+  each, merged as the global K2 merges nodes.
 * Floors, always: an empty kernel's device and eager ms, and a plain
   copy of K5's rows with K5's grid at B = 1 and 8.
 
@@ -191,18 +199,265 @@ def k5_pdl_source() -> str:
 """)
 
 
+# The two-pass scan that the clustered K1, K2 and K3 replaced, as it
+# shipped: one block per (64-row chunk, plane and node, tile of 16 queries)
+# selects the chunk's top-k into scratch lists in device memory by k rounds
+# of a warp arg-max; a second launch merges the lists of a node
+# (per_node) or of every node of the plane, node-masked or not.  K3 was its
+# per-node scan over one plane and one node.
+TEMPLATE_SOURCE = """#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int ROWS = 64;       // capacity rows per block (one chunk)
+constexpr int QTILE = 16;      // queries per block
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int MAX_K = 32;
+constexpr float MASKED = -1e30f;         // masked-candidate sentinel
+constexpr int EMPTY_SLOT = 0x7fffffff;   // past the end of a slab
+
+// strict total order: higher score first, then lower global slot
+__device__ __forceinline__ bool better(float s1, int i1, float s2, int i2) {
+  return s1 > s2 || (s1 == s2 && i1 < i2);
+}
+
+// warp-wide arg-best of (score, slot, owner); every lane gets the winner
+__device__ __forceinline__ void warp_best(float& s, int& i, int& owner) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    float s2 = __shfl_xor_sync(0xffffffffu, s, off);
+    int i2 = __shfl_xor_sync(0xffffffffu, i, off);
+    int o2 = __shfl_xor_sync(0xffffffffu, owner, off);
+    if (better(s2, i2, s, i) || (s2 == s && i2 == i && o2 < owner)) {
+      s = s2;
+      i = i2;
+      owner = o2;
+    }
+  }
+}
+
+template <bool MASK_NODES>
+__global__ void __launch_bounds__(THREADS)
+scan_chunks(const float* __restrict__ q, const float* __restrict__ slabs,
+            const uint8_t* __restrict__ valid,
+            const int* __restrict__ node_ids, float* __restrict__ part_s,
+            int* __restrict__ part_i, int n_nodes, int cap, int dim, int n_q,
+            int k, int n_chunks) {
+  extern __shared__ float4 q_s[];                 // (QTILE, dim/4)
+  __shared__ float score_s[QTILE][ROWS];
+
+  const int chunk = blockIdx.x;
+  const int pn = blockIdx.y;                      // plane * n_nodes + node
+  const int node = pn % n_nodes;
+  const int q0 = blockIdx.z * QTILE;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int d4 = dim / 4;
+
+  // query tile -> shared memory (zero rows past the end)
+  for (int e = threadIdx.x; e < QTILE * d4; e += THREADS) {
+    int qi = e / d4, c = e % d4;
+    q_s[e] = (q0 + qi < n_q)
+        ? reinterpret_cast<const float4*>(q)[(size_t)(q0 + qi) * d4 + c]
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+
+  // scores: each warp streams rows warp, warp + WARPS, ... of the chunk
+  const float4* slab4 = reinterpret_cast<const float4*>(slabs) +
+                        (size_t)pn * cap * d4;
+  for (int r = warp; r < ROWS; r += WARPS) {
+    const int col = chunk * ROWS + r;
+    float acc[QTILE];
+#pragma unroll
+    for (int qi = 0; qi < QTILE; ++qi) acc[qi] = 0.f;
+    if (col < cap) {
+      const float4* row = slab4 + (size_t)col * d4;
+      for (int c = lane; c < d4; c += 32) {
+        float4 v = __ldg(row + c);
+#pragma unroll
+        for (int qi = 0; qi < QTILE; ++qi) {
+          float4 x = q_s[qi * d4 + c];
+          acc[qi] = fmaf(v.x, x.x, acc[qi]);
+          acc[qi] = fmaf(v.y, x.y, acc[qi]);
+          acc[qi] = fmaf(v.z, x.z, acc[qi]);
+          acc[qi] = fmaf(v.w, x.w, acc[qi]);
+        }
+      }
+    }
+#pragma unroll
+    for (int qi = 0; qi < QTILE; ++qi) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[qi] += __shfl_xor_sync(0xffffffffu, acc[qi], off);
+    }
+    if (lane < QTILE) {
+      float s = 0.f;
+#pragma unroll
+      for (int qi = 0; qi < QTILE; ++qi)
+        if (qi == lane) s = acc[qi];
+      const int qg = q0 + lane;
+      if (col >= cap) {
+        s = -CUDART_INF_F;                        // empty: below masked
+      } else {
+        bool ok = valid[(size_t)node * cap + col] != 0;
+        if (MASK_NODES) ok = ok && qg < n_q && node_ids[qg] == node;
+        if (!ok) s = MASKED;
+      }
+      score_s[lane][r] = s;
+    }
+  }
+  __syncthreads();
+
+  // chunk top-k: one warp per query, two candidates per lane
+  for (int qi = warp; qi < QTILE; qi += WARPS) {
+    const int qg = q0 + qi;
+    if (qg >= n_q) continue;
+    float cs[2];
+    int ci[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = lane + 32 * j;
+      const int col = chunk * ROWS + r;
+      cs[j] = score_s[qi][r];
+      ci[j] = col < cap ? node * cap + col : EMPTY_SLOT;
+    }
+    const size_t base = (((size_t)pn * n_chunks + chunk) * n_q + qg) * k;
+    for (int kk = 0; kk < k; ++kk) {
+      const int pick = better(cs[0], ci[0], cs[1], ci[1]) ? 0 : 1;
+      float s = cs[pick];
+      int i = ci[pick];
+      int owner = lane * 2 + pick;
+      warp_best(s, i, owner);
+      if (owner / 2 == lane) {                    // the winner drops out
+        cs[owner % 2] = -CUDART_INF_F;
+        ci[owner % 2] = EMPTY_SLOT;
+      }
+      if (lane == 0) {
+        part_s[base + kk] = s;
+        part_i[base + kk] = i;
+      }
+    }
+  }
+}
+
+template <bool PER_NODE>
+__global__ void __launch_bounds__(THREADS)
+merge_lists(const float* __restrict__ part_s, const int* __restrict__ part_i,
+            float* __restrict__ out_s, int* __restrict__ out_i, int n_planes,
+            int n_nodes, int n_q, int k, int n_chunks) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int list = blockIdx.x * WARPS + warp;
+  // PER_NODE: list = (plane * n_nodes + node) * n_q + q; else plane * n_q + q
+  const int n_lists = (PER_NODE ? n_planes * n_nodes : n_planes) * n_q;
+  if (list >= n_lists) return;
+  const int q = list % n_q;
+  const int group = list / n_q;                   // pn, or the plane
+  const int first_pn = PER_NODE ? group : group * n_nodes;
+  const int n_pn = PER_NODE ? 1 : n_nodes;
+  const int per_pn = n_chunks * k;                // candidates of one (p, n)
+  const int m = n_pn * per_pn;
+
+  float last_s = CUDART_INF_F;                    // nothing taken yet
+  int last_i = -1;
+  for (int kk = 0; kk < k; ++kk) {
+    float s = -CUDART_INF_F;
+    int i = EMPTY_SLOT;
+    for (int j = lane; j < m; j += 32) {
+      const int pn = first_pn + j / per_pn;
+      const int chunk = (j % per_pn) / k;
+      const size_t at =
+          (((size_t)pn * n_chunks + chunk) * n_q + q) * k + (j % k);
+      const float cs = part_s[at];
+      const int ci = part_i[at];
+      if (better(last_s, last_i, cs, ci) && better(cs, ci, s, i)) {
+        s = cs;
+        i = ci;
+      }
+    }
+    int owner = 0;
+    warp_best(s, i, owner);
+    if (lane == 0) {
+      out_s[(size_t)list * k + kk] = s;
+      out_i[(size_t)list * k + kk] = i;
+    }
+    last_s = s;
+    last_i = i;
+  }
+}
+
+template <bool PER_NODE, bool MASK_NODES>
+int launch(const float* q, const float* slabs, const uint8_t* valid,
+           const int* node_ids, float* part_s, int* part_i, float* out_s,
+           int* out_i, int n_planes, int n_nodes, int cap, int dim, int n_q,
+           int k, cudaStream_t stream) {
+  const int n_chunks = (cap + ROWS - 1) / ROWS;
+  const size_t smem = (size_t)QTILE * dim * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        scan_chunks<MASK_NODES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid1(n_chunks, n_planes * n_nodes, (n_q + QTILE - 1) / QTILE);
+  scan_chunks<MASK_NODES><<<grid1, THREADS, smem, stream>>>(
+      q, slabs, valid, node_ids, part_s, part_i, n_nodes, cap, dim, n_q, k,
+      n_chunks);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int n_lists = (PER_NODE ? n_planes * n_nodes : n_planes) * n_q;
+  merge_lists<PER_NODE><<<(n_lists + WARPS - 1) / WARPS, THREADS, 0,
+                          stream>>>(part_s, part_i, out_s, out_i, n_planes,
+                                    n_nodes, n_q, k, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scratch lists: part_s / part_i of n_planes * n_nodes * template_chunks(cap)
+// * n_q * k elements each.  Returns cudaGetLastError() after the launches.
+int template_chunks(int cap) { return (cap + ROWS - 1) / ROWS; }
+
+int template_launch(const float* q, const float* slabs, const uint8_t* valid,
+                    const int* node_ids, float* part_s, int* part_i,
+                    float* out_s, int* out_i, int n_planes, int n_nodes,
+                    int cap, int dim, int n_q, int k, int per_node,
+                    int mask_nodes, cudaStream_t stream) {
+  if (per_node)
+    return launch<true, false>(q, slabs, valid, node_ids, part_s, part_i,
+                               out_s, out_i, n_planes, n_nodes, cap, dim, n_q,
+                               k, stream);
+  if (mask_nodes)
+    return launch<false, true>(q, slabs, valid, node_ids, part_s, part_i,
+                               out_s, out_i, n_planes, n_nodes, cap, dim, n_q,
+                               k, stream);
+  return launch<false, false>(q, slabs, valid, node_ids, part_s, part_i,
+                              out_s, out_i, n_planes, n_nodes, cap, dim, n_q,
+                              k, stream);
+}
+
+}  // extern "C"
+"""
+
+
 def k1_wide_source() -> str:
     """vdb_topk.cu whose clustered scan also takes clusters of 9-16 blocks
     (non-portable sizes), plus ``vdb_topk_pernode_max_clusters``: how many
     clusters of a plan the card holds at once."""
     src = (CSRC / "vdb_topk.cu").read_text()
-    src = sub(src, "constexpr int PN_MAX_CLUSTER = 8; ",
-              "constexpr int PN_MAX_CLUSTER = 16;")
+    src = sub(src, "constexpr int MAX_CLUSTER = 8; ",
+              "constexpr int MAX_CLUSTER = 16;")
     src = sub(src, """  cudaError_t e = cudaSuccess;
   if (smem > allowed) {""", """  static bool wide = false;
   cudaError_t e = cudaSuccess;
   if (!wide) {
-    e = cudaFuncSetAttribute(pernode_fused<QT>,
+    e = cudaFuncSetAttribute(scan_fused<QT, MODE>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     wide = true;
@@ -210,12 +465,12 @@ def k1_wide_source() -> str:
   if (smem > allowed) {""")
     return sub(src, "}  // namespace\n\nextern \"C\" {\n", """template <int QT>
 int pernode_max_clusters(int cl, int dim, int stages) {
-  const size_t smem = pernode_smem(QT, dim, stages);
+  const size_t smem = scan_smem(QT, dim, stages);
   cudaLaunchAttribute attr[2];
-  const cudaLaunchConfig_t cfg = pernode_config(cl, 1, 1, smem, 0, attr);
+  const cudaLaunchConfig_t cfg = scan_config(cl, 1, 1, smem, 0, attr);
   int n = 0;
-  if (pernode_allow<QT>(smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveClusters(&n, pernode_fused<QT>, &cfg) !=
+  if (scan_allow<QT, PER_NODE>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&n, scan_fused<QT, PER_NODE>, &cfg) !=
           cudaSuccess)
     n = 0;
   return n;
@@ -243,6 +498,23 @@ def k1_argmax_source() -> str:
     """vdb_topk.cu whose clustered scan takes a tile into a running list
     by k rounds of warp arg-max over both (two candidates a lane)."""
     src = (CSRC / "vdb_topk.cu").read_text()
+    src = sub(src, "template <int QT, int MODE>\n__global__", """// warp-wide arg-best of (score, slot, owner); every lane gets the winner
+__device__ __forceinline__ void warp_best(float& s, int& i, int& owner) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    float s2 = __shfl_xor_sync(0xffffffffu, s, off);
+    int i2 = __shfl_xor_sync(0xffffffffu, i, off);
+    int o2 = __shfl_xor_sync(0xffffffffu, owner, off);
+    if (better(s2, i2, s, i) || (s2 == s && i2 == i && o2 < owner)) {
+      s = s2;
+      i = i2;
+      owner = o2;
+    }
+  }
+}
+
+template <int QT, int MODE>
+__global__""")
     return sub(src, """          warp_sort(cs, ci, lane);
           if (t == 0) {                   // the list is empty
             ls[j] = cs;
@@ -294,7 +566,7 @@ __device__ __forceinline__ long long gtime() {
 }
 #define MARK(i) \\
   if (threadIdx.x == 0 && tb < 4096) g_trace[tb][i] = gtime();""")
-    src = sub(src, "  // group 0: the query tile (zeros past n_q) and tile 0; group s: tile s\n",
+    src = sub(src, "  // group 0: the query tile (zeros past m) and tile 0; group s: tile s\n",
               """  const int tb = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
   MARK(0);
   if (threadIdx.x == 0 && tb < 4096) {
@@ -490,7 +762,7 @@ def device_ms(torch, fn, reps: int = 20, replays: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -567,7 +839,52 @@ def diag_k5(torch, pdl_lib, dev, gen) -> dict:
     return out
 
 
-def diag_k1(torch, argmax_lib, wide_lib, dev, gen) -> dict:
+def template_args(lib) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.template_launch.argtypes = [P] * 8 + [I] * 8 + [P]
+    lib.template_chunks.argtypes = [I]
+
+
+def two_pass(torch, lib, q, slabs, valid, nids, k, *, per_node=False,
+             mask_nodes=False):
+    """The template's two launches on preallocated scratch and outputs:
+    (run, (scores, ids))."""
+    dev = q.device
+    n_idx, n_nodes, cap, d = slabs.shape
+    qn = q.shape[0]
+    chunks = lib.template_chunks(cap)
+    part_s = torch.empty((n_idx * n_nodes * chunks * qn * k,), device=dev)
+    part_i = torch.empty(part_s.shape, dtype=torch.int32, device=dev)
+    shape = (n_idx, n_nodes, qn, k) if per_node else (n_idx, qn, k)
+    o_s = torch.empty(shape, device=dev)
+    o_i = torch.empty(shape, dtype=torch.int32, device=dev)
+
+    def run():
+        err = lib.template_launch(
+            q.data_ptr(), slabs.data_ptr(), valid.data_ptr(),
+            nids.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
+            o_s.data_ptr(), o_i.data_ptr(), n_idx, n_nodes, cap, d, qn, k,
+            int(per_node), int(mask_nodes),
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+    return run, (o_s, o_i)
+
+
+def same(a, b) -> bool:
+    return all(x.equal(y) for x, y in zip(a, b))
+
+
+def unit_case(torch, gen, dev, shape, qn):
+    slabs = torch.randn(shape, generator=gen)
+    slabs /= slabs.norm(dim=-1, keepdim=True)
+    q = torch.randn((qn, shape[-1]), generator=gen)
+    q /= q.norm(dim=-1, keepdim=True)
+    valid = torch.rand(shape[-3:-1] if len(shape) == 4 else shape[:1],
+                       generator=gen) < 0.7
+    return q.to(dev), slabs.to(dev), valid.to(dev)
+
+
+def diag_k1(torch, template_lib, argmax_lib, wide_lib, dev, gen) -> dict:
     from repro_torch.kernels import vdb_topk
     lib = vdb_topk._lib()
     for lib_ in (argmax_lib, wide_lib):
@@ -576,14 +893,6 @@ def diag_k1(torch, argmax_lib, wide_lib, dev, gen) -> dict:
     wide_lib.vdb_topk_pernode_max_clusters.argtypes = [ctypes.c_int] * 4
     out = {}
     k = 8
-
-    def case(cap, qn):
-        slabs = torch.randn((2, 4, cap, 512), generator=gen)
-        slabs /= slabs.norm(dim=-1, keepdim=True)
-        q = torch.randn((qn, 512), generator=gen)
-        q /= q.norm(dim=-1, keepdim=True)
-        valid = torch.rand((4, cap), generator=gen) < 0.7
-        return q.to(dev), slabs.to(dev), valid.to(dev)
 
     def clustered(q, slabs, valid, cl=None, lib_=lib):
         qn, cap = q.shape[0], slabs.shape[2]
@@ -606,37 +915,19 @@ def diag_k1(torch, argmax_lib, wide_lib, dev, gen) -> dict:
             assert err == 0, err
         return run, (o_s, o_i), p
 
-    def two_pass(q, slabs, valid):
-        qn, cap = q.shape[0], slabs.shape[2]
-        chunks = lib.vdb_topk_chunks(cap)
-        part_s = torch.empty((8 * chunks * qn * k,), device=dev)
-        part_i = torch.empty(part_s.shape, dtype=torch.int32, device=dev)
-        o_s = torch.empty((2, 4, qn, k), device=dev)
-        o_i = torch.empty((2, 4, qn, k), dtype=torch.int32, device=dev)
-
-        def run():
-            err = lib.vdb_topk_launch(
-                q.data_ptr(), slabs.data_ptr(), valid.data_ptr(),
-                q.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
-                o_s.data_ptr(), o_i.data_ptr(), 2, 4, cap, 512, qn, k, 1, 0,
-                torch.cuda.current_stream().cuda_stream)
-            assert err == 0, err
-        return run, (o_s, o_i)
-
     for cap, qns in ((400, (1, 2, 3, 4, 5, 6, 7, 8)), (4096, (1, 8))):
         for qn in qns:
-            q, slabs, valid = case(cap, qn)
+            q, slabs, valid = unit_case(torch, gen, dev, (2, 4, cap, 512), qn)
             bound = (slabs.numel() * 4 + q.numel() * 4 + valid.numel()
                      + 2 * 4 * qn * k * 8) / 3.35e12 * 1e3
             new, o_new, p = clustered(q, slabs, valid)
-            old, o_old = two_pass(q, slabs, valid)
+            old, o_old = two_pass(torch, template_lib, q, slabs, valid, q, k,
+                                  per_node=True)
             am, o_am, _ = clustered(q, slabs, valid, lib_=argmax_lib)
             for fn in (new, old, am):
                 fn()
             torch.cuda.synchronize()
-            if not (torch.equal(o_new[0], o_old[0])
-                    and torch.equal(o_new[1], o_old[1])
-                    and torch.equal(o_am[1], o_old[1])):
+            if not (same(o_new, o_old) and torch.equal(o_am[1], o_old[1])):
                 raise SystemExit(f"k1: clustered != two-pass at cap {cap} "
                                  f"Q {qn}")
             row = dict(plan=p, bound_ms=bound)
@@ -664,6 +955,190 @@ def diag_k1(torch, argmax_lib, wide_lib, dev, gen) -> dict:
                     print(f"[k1]   cluster of {cl:>2} ({pc['block_rows']} "
                           f"rows a block, {pc['stages']} stages): {ms:.4f} "
                           f"ms; {fit} clusters fit at once", flush=True)
+    return out
+
+
+def diag_k2(torch, template_lib, wide_lib, dev, gen) -> dict:
+    """K2 node-masked and global against the two-pass template, at Q = 1,
+    2, 8, 17 over 2 x 4 x 400 x 512 and Q = 8 over 2 x 4 x 4096 x 512,
+    k = 8, unit vectors, node ids drawn from the 4 nodes: device and eager
+    ms (bare ctypes calls on preallocated outputs, the shipped global
+    scan's list buffer included), bound (the whole slab; for node-masked
+    also the named nodes' slabs alone), same bits as the template.  The
+    global scan also as design (b), one cluster per (plane, query tile)
+    over every node's rows (the per-node scan of one node spanning the
+    plane), with clusters of the plan's size (up to 8) and of 16."""
+    from repro_torch.kernels import vdb_topk
+    lib = vdb_topk._lib()
+    wide_lib.vdb_topk_pernode_launch.argtypes = \
+        lib.vdb_topk_pernode_launch.argtypes
+    out = {}
+    k = 8
+    for cap, qn in ((400, 1), (400, 2), (400, 8), (400, 17), (4096, 8)):
+        q, slabs, valid = unit_case(torch, gen, dev, (2, 4, cap, 512), qn)
+        nids = torch.randint(0, 4, (qn,), generator=gen,
+                             dtype=torch.int32).to(dev)
+        n_idx, n_nodes = 2, 4
+        p = vdb_topk.pernode_plan(qn, cap, 512)
+        n_tiles = -(-qn // p["query_tile"])
+        lists_s = torch.empty((n_idx, n_nodes, qn, k), device=dev)
+        lists_i = torch.empty(lists_s.shape, dtype=torch.int32, device=dev)
+        tickets = torch.zeros((n_idx * n_tiles * p["cluster_blocks"],),
+                              dtype=torch.int32, device=dev)
+        fixed = (q.numel() * 4 + valid.numel() + qn * 4
+                 + n_idx * qn * k * 8)
+        named = len(set(nids.tolist()))
+        bound = (slabs.numel() * 4 + fixed) / 3.35e12 * 1e3
+        bound_named = (slabs.numel() * 4 * named // n_nodes + fixed) \
+            / 3.35e12 * 1e3
+        for mask in (True, False):
+            o_s = torch.empty((n_idx, qn, k), device=dev)
+            o_i = torch.empty(o_s.shape, dtype=torch.int32, device=dev)
+
+            def new(mask=mask, o_s=o_s, o_i=o_i):
+                err = lib.vdb_topk_sharded_launch(
+                    q.data_ptr(), slabs.data_ptr(), valid.data_ptr(),
+                    nids.data_ptr(), o_s.data_ptr(), o_i.data_ptr(),
+                    lists_s.data_ptr(), lists_i.data_ptr(),
+                    tickets.data_ptr(), n_idx, n_nodes, cap, 512, qn, k,
+                    int(mask), p["query_tile"], p["cluster_blocks"],
+                    p["block_rows"], p["stages"],
+                    torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+            old, o_old = two_pass(torch, template_lib, q, slabs, valid, nids,
+                                  k, mask_nodes=mask)
+            fns = [("clustered", new, (o_s, o_i)), ("template", old, o_old)]
+            if not mask:
+                for name, lib_, cl in (("b", lib, None),
+                                       ("b16", wide_lib, 16)):
+                    pb = vdb_topk.pernode_plan(qn, n_nodes * cap, 512)
+                    if cl is not None:
+                        rows = -(-n_nodes * cap // cl)
+                        fx = pb["smem_bytes"] - pb["stages"] * 4 * 32 * 512
+                        pb = dict(pb, cluster_blocks=cl, block_rows=rows,
+                                  stages=min(4, -(-rows // 32),
+                                             (vdb_topk.SMEM_LIMIT - fx)
+                                             // (4 * 32 * 512)))
+                    b_s = torch.empty((n_idx, 1, qn, k), device=dev)
+                    b_i = torch.empty(b_s.shape, dtype=torch.int32,
+                                      device=dev)
+
+                    def run_b(lib_=lib_, pb=pb, b_s=b_s, b_i=b_i):
+                        err = lib_.vdb_topk_pernode_launch(
+                            q.data_ptr(), slabs.data_ptr(), valid.data_ptr(),
+                            b_s.data_ptr(), b_i.data_ptr(), n_idx, 1,
+                            n_nodes * cap, 512, qn, k, pb["query_tile"],
+                            pb["cluster_blocks"], pb["block_rows"],
+                            pb["stages"],
+                            torch.cuda.current_stream().cuda_stream)
+                        assert err == 0, err
+                    fns.append((name, run_b, (b_s[:, 0], b_i[:, 0])))
+            for _, fn, _ in fns:
+                fn()
+            torch.cuda.synchronize()
+            for name, _, got in fns:
+                if not same(got, o_old):
+                    raise SystemExit(f"k2: {name} != template at cap {cap} "
+                                     f"Q {qn} mask {mask}")
+            mode = "node-masked" if mask else "global"
+            row = dict(plan=p, bound_ms=bound, nodes_named=named)
+            if mask:
+                row["bound_named_ms"] = bound_named
+            for name, fn, _ in fns:
+                row[name] = dict(ms=device_ms(torch, fn),
+                                 call_ms=call_ms(torch, fn))
+            out[f"{mode} cap {cap} Q={qn}"] = row
+            print(f"[k2] {mode} cap {cap} Q={qn} ({named} nodes named): "
+                  + ", ".join(f"{n} {row[n]['ms']:.4f} ms (eager "
+                              f"{row[n]['call_ms']:.4f})"
+                              for n, _, _ in fns)
+                  + f"; bound {bound:.4f}"
+                  + (f" (named nodes alone {bound_named:.4f})" if mask
+                     else "") + "; same bits", flush=True)
+    return out
+
+
+def split_plan(vdb_topk, n_q: int, n: int, dim: int, node_rows: int) -> dict:
+    """``vdb_topk.single_plan`` with nodes of at most ``node_rows`` rows
+    in place of ``SINGLE_NODE_ROWS``."""
+    seg = -(-n // -(-n // node_rows))
+    return dict(vdb_topk.pernode_plan(n_q, seg, dim), split=-(-n // seg),
+                segment=seg)
+
+
+def diag_k3(torch, template_lib, dev, gen) -> dict:
+    """K3 against the two-pass template at Q = 1 and 8 over 400 x 512 and
+    4096 x 512, k = 8: device and eager ms, bound, same bits.  Then the
+    shipped scan with the db split into nodes of at most 128-1024 rows
+    (``split_plan``; one node: no merge across clusters), same bits
+    each."""
+    from repro_torch.kernels import vdb_topk
+    lib = vdb_topk._lib()
+    out = {}
+    k = 8
+    for n in (400, 4096):
+        for qn in (1, 8):
+            q, db, valid = unit_case(torch, gen, dev, (n, 512), qn)
+
+            def clustered(node_rows):
+                p = split_plan(vdb_topk, qn, n, 512, node_rows)
+                o_s = torch.empty((qn, k), device=dev)
+                o_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
+                l_s = torch.empty((p["split"], qn, k), device=dev)
+                l_i = torch.empty(l_s.shape, dtype=torch.int32, device=dev)
+                t = torch.zeros((-(-qn // p["query_tile"])
+                                 * p["cluster_blocks"],),
+                                dtype=torch.int32, device=dev)
+
+                def run():
+                    err = lib.vdb_topk_single_launch(
+                        q.data_ptr(), db.data_ptr(), valid.data_ptr(),
+                        o_s.data_ptr(), o_i.data_ptr(), l_s.data_ptr(),
+                        l_i.data_ptr(), t.data_ptr(), n, 512, qn, k,
+                        p["split"], p["segment"], p["query_tile"],
+                        p["cluster_blocks"], p["block_rows"], p["stages"],
+                        torch.cuda.current_stream().cuda_stream)
+                    assert err == 0, err
+                return run, (o_s, o_i), p
+            new, o_new, p = clustered(vdb_topk.SINGLE_NODE_ROWS)
+            old, o_old = two_pass(torch, template_lib, q, db[None, None],
+                                  valid[None], q, k, per_node=True)
+            new()
+            old()
+            torch.cuda.synchronize()
+            o_old = (o_old[0][0, 0], o_old[1][0, 0])
+            if not same(o_new, o_old):
+                raise SystemExit(f"k3: clustered != template at {n} Q {qn}")
+            bound = (db.numel() * 4 + q.numel() * 4 + n + qn * k * 8) \
+                / 3.35e12 * 1e3
+            row = dict(plan=p, bound_ms=bound)
+            for name, fn in (("clustered", new), ("template", old)):
+                row[name] = dict(ms=device_ms(torch, fn),
+                                 call_ms=call_ms(torch, fn))
+            out[f"{n} Q={qn}"] = row
+            print(f"[k3] db ({n}, 512) Q={qn} (plan {p}): clustered "
+                  f"{row['clustered']['ms']:.4f} ms, template "
+                  f"{row['template']['ms']:.4f}, bound {bound:.4f}; eager "
+                  f"{row['clustered']['call_ms']:.4f} / "
+                  f"{row['template']['call_ms']:.4f} ms a call; same bits",
+                  flush=True)
+            seen = set()
+            for node_rows in (1 << 20, 1024, 512, 256, 128):
+                fn, o, pr = clustered(node_rows)
+                if pr["split"] in seen:
+                    continue
+                seen.add(pr["split"])
+                fn()
+                torch.cuda.synchronize()
+                if not same(o, o_old):
+                    raise SystemExit(f"k3: split {pr['split']} != template "
+                                     f"at {n} Q {qn}")
+                ms = device_ms(torch, fn)
+                out[f"{n} Q={qn} split {pr['split']}"] = dict(ms=ms, plan=pr)
+                print(f"[k3]   {pr['split']:>2} node(s) of {pr['segment']} "
+                      f"rows ({pr['cluster_blocks']} blocks of "
+                      f"{pr['block_rows']}): {ms:.4f} ms; same bits",
+                      flush=True)
     return out
 
 
@@ -731,7 +1206,7 @@ def trace_k1(torch, lib, dev, gen) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("k1", "k4", "k5", "k6"),
+    ap.add_argument("--only", choices=("k1", "k2", "k3", "k4", "k5", "k6"),
                     default=None)
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args()
@@ -747,28 +1222,39 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"[card] {card}", flush=True)
-    want = {args.only} if args.only else {"k1", "k4", "k5", "k6"}
+    want = {args.only} if args.only else {"k1", "k2", "k3", "k4", "k5",
+                                           "k6"}
     k4 = ("shipped", "cvt", "hi", "raw") if "k4" in want else ()
     rules = tuple(GN_RULES) if "k6" in want else ()
     extra = {"nop": NOP_SOURCE}
     if "k5" in want:
         extra["adaln_pdl"] = k5_pdl_source()
+    if want & {"k1", "k2", "k3"}:
+        extra["vdb_template"] = TEMPLATE_SOURCE
+    if want & {"k1", "k2"}:
+        extra["vdb_wide"] = k1_wide_source()
     if "k1" in want:
         extra["vdb_argmax"] = k1_argmax_source()
-        extra["vdb_wide"] = k1_wide_source()
         extra["vdb_trace"] = k1_trace_source()
     libs = build({**{f"fa_{v}": k4_source(v) for v in k4},
                   **{f"gn_{r}": k6_source(GN_RULES[r]) for r in rules},
                   **extra})
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    result = dict(card=card, k1={}, k4={}, k5={}, k6={})
+    result = dict(card=card, k1={}, k2={}, k3={}, k4={}, k5={}, k6={})
     result["floor"] = launch_floor(torch, libs["nop"], dev)
+    if "vdb_template" in libs:
+        template_args(libs["vdb_template"])
     if "k5" in want:
         result["k5"] = diag_k5(torch, libs["adaln_pdl"], dev, gen)
-    if "k1" in want:
-        result["k1"] = diag_k1(torch, libs["vdb_argmax"], libs["vdb_wide"],
+    if "k3" in want:
+        result["k3"] = diag_k3(torch, libs["vdb_template"], dev, gen)
+    if "k2" in want:
+        result["k2"] = diag_k2(torch, libs["vdb_template"], libs["vdb_wide"],
                                dev, gen)
+    if "k1" in want:
+        result["k1"] = diag_k1(torch, libs["vdb_template"],
+                               libs["vdb_argmax"], libs["vdb_wide"], dev, gen)
         result["k1_trace"] = trace_k1(torch, libs["vdb_trace"], dev, gen)
 
     qkv = torch.randn((8, 256, 3, 12, 64), generator=gen).to(dev)
