@@ -29,7 +29,7 @@ Multi-tenant traffic is built by tagging each process with a
 ``tenant``/``tier`` and interleaving them with :func:`merge_arrivals`
 (stable, deterministic tie-break on equal timestamps) — one trace
 generator becomes one client among many at the front door
-(the front door is not part of the PyTorch port yet).
+(:mod:`repro_torch.frontdoor`).
 """
 from __future__ import annotations
 

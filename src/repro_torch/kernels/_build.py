@@ -11,6 +11,11 @@ by a hash of the source and the flags, so an edited source rebuilds and
 an unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per
 source, all at once, and waits for them; :func:`library` builds at first
 use.  Nothing here runs at import time.
+
+The front door launches kernels from its worker thread, so a first use
+can come from two threads at once: the check, the build, the load and
+the ``ctypes`` declarations of a library happen under one lock, and a
+library is published only once it is declared.
 """
 from __future__ import annotations
 
@@ -19,9 +24,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -33,6 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# re-entrant: library() builds through build_all() while holding it
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -66,6 +74,11 @@ def build_all() -> Dict[str, float]:
     process per source, all started together.  Returns the seconds each
     build took (0.0 for a library that was already built); raises with
     the compiler's output if any build fails."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -95,16 +108,25 @@ def build_all() -> Dict[str, float]:
     return secs
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str,
+            declare: Optional[Callable[[ctypes.CDLL], None]] = None,
+            ) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built on first
-    use."""
+    use; ``declare(lib)`` sets its functions' ``argtypes`` and ``restype``
+    before any caller sees it.  One library per name, whichever threads
+    ask first."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _target(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = _target(name)
+                if not path.exists():
+                    build_all()
+                lib = ctypes.CDLL(str(path))
+                if declare is not None:
+                    declare(lib)
+                _LIBS[name] = lib
     return lib
 
 

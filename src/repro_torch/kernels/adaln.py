@@ -33,13 +33,14 @@ _L = ctypes.c_longlong
 MAX_DIM = 1536                 # 12 float4 a lane (csrc/adaln.cu MAX_NV)
 
 
+def _declare(lib) -> None:
+    lib.adaln_launch.argtypes = ([_P] * 4 + [_I] * 3 + [_L] * 2
+                                 + [_I, ctypes.c_float, _P])
+    lib.adaln_launch.restype = ctypes.c_int
+
+
 def _lib():
-    lib = _build.library("adaln")
-    if lib.adaln_launch.argtypes is None:
-        lib.adaln_launch.argtypes = ([_P] * 4 + [_I] * 3 + [_L] * 2
-                                     + [_I, ctypes.c_float, _P])
-        lib.adaln_launch.restype = ctypes.c_int
-    return lib
+    return _build.library("adaln", _declare)
 
 
 def warps_per_block(rows: int) -> int:

@@ -32,15 +32,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def _declare(lib) -> None:
+    lib.flash_attention_launch.argtypes = (
+        [_P] * 4 + [_I] * 5 + [_P, ctypes.c_float, _I, _P])
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_layout.argtypes = [_I] * 5 + [_P]
+    lib.flash_attention_layout.restype = ctypes.c_int
+
+
 def _lib():
-    lib = _build.library("flash_attention")
-    if lib.flash_attention_launch.argtypes is None:
-        lib.flash_attention_launch.argtypes = (
-            [_P] * 4 + [_I] * 5 + [_P, ctypes.c_float, _I, _P])
-        lib.flash_attention_launch.restype = ctypes.c_int
-        lib.flash_attention_layout.argtypes = [_I] * 5 + [_P]
-        lib.flash_attention_layout.restype = ctypes.c_int
-    return lib
+    return _build.library("flash_attention", _declare)
 
 
 def layout(b: int, h: int, sq: int, sk: int, d: int) -> dict:

@@ -39,19 +39,20 @@ PLAN_KEYS = ("slice_channels", "slices", "cluster_blocks", "threads",
              "smem_bytes")
 
 
+def _declare(lib) -> None:
+    lib.groupnorm_silu_launch.argtypes = (
+        [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P])
+    lib.groupnorm_silu_launch.restype = ctypes.c_int
+    lib.groupnorm_silu_plan.argtypes = [_I, _I, _I, _P]
+    lib.groupnorm_silu_plan.restype = None
+    lib.groupnorm_silu_max_clusters.argtypes = [_I, _I, _I]
+    lib.groupnorm_silu_max_clusters.restype = ctypes.c_int
+    lib.groupnorm_silu_max_channels.argtypes = []
+    lib.groupnorm_silu_max_channels.restype = ctypes.c_int
+
+
 def _lib():
-    lib = _build.library("groupnorm_silu")
-    if lib.groupnorm_silu_launch.argtypes is None:
-        lib.groupnorm_silu_launch.argtypes = (
-            [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P])
-        lib.groupnorm_silu_launch.restype = ctypes.c_int
-        lib.groupnorm_silu_plan.argtypes = [_I, _I, _I, _P]
-        lib.groupnorm_silu_plan.restype = None
-        lib.groupnorm_silu_max_clusters.argtypes = [_I, _I, _I]
-        lib.groupnorm_silu_max_clusters.restype = ctypes.c_int
-        lib.groupnorm_silu_max_channels.argtypes = []
-        lib.groupnorm_silu_max_channels.restype = ctypes.c_int
-    return lib
+    return _build.library("groupnorm_silu", _declare)
 
 
 def num_groups(channels: int, groups: int) -> int:

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -60,22 +61,24 @@ SMEM_LIMIT = 232448
 SINGLE_NODE_ROWS = 512
 
 
+def _declare(lib) -> None:
+    lib.vdb_topk_pernode_launch.argtypes = [_P] * 5 + [_I] * 10 + [_P]
+    lib.vdb_topk_pernode_launch.restype = ctypes.c_int
+    lib.vdb_topk_sharded_launch.argtypes = [_P] * 9 + [_I] * 11 + [_P]
+    lib.vdb_topk_sharded_launch.restype = ctypes.c_int
+    lib.vdb_topk_single_launch.argtypes = [_P] * 8 + [_I] * 10 + [_P]
+    lib.vdb_topk_single_launch.restype = ctypes.c_int
+
+
 def _lib():
-    lib = _build.library("vdb_topk")
-    if lib.vdb_topk_pernode_launch.argtypes is None:
-        lib.vdb_topk_pernode_launch.argtypes = [_P] * 5 + [_I] * 10 + [_P]
-        lib.vdb_topk_pernode_launch.restype = ctypes.c_int
-        lib.vdb_topk_sharded_launch.argtypes = [_P] * 9 + [_I] * 11 + [_P]
-        lib.vdb_topk_sharded_launch.restype = ctypes.c_int
-        lib.vdb_topk_single_launch.argtypes = [_P] * 8 + [_I] * 10 + [_P]
-        lib.vdb_topk_single_launch.restype = ctypes.c_int
-    return lib
+    return _build.library("vdb_topk", _declare)
 
 
 # ticket counters a launch that merges node lists may use: P x query
 # tiles x cluster blocks (P = 2 and clusters of 8: up to 32768 queries)
 MAX_TICKETS = 1 << 15
 _TICKETS: dict = {}
+_TICKETS_LOCK = threading.Lock()
 
 
 def _tickets(dev, n: int) -> torch.Tensor:
@@ -88,19 +91,21 @@ def _tickets(dev, n: int) -> torch.Tensor:
     use a stream's counters at once; a graph replays with the counters of
     the stream it was captured on, so replay it on that stream or after
     it.  A stream's counters are made outside capture: call once on the
-    stream before capturing on it."""
+    stream before capturing on it.  The look-up and the allocation are
+    one step under a lock, so threads that ask at once get one buffer."""
     if n > MAX_TICKETS:
         raise ValueError(f"{n} ticket counters exceed {MAX_TICKETS}: too "
                          "many queries for one launch")
     key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    t = _TICKETS.get(key)
-    if t is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the merging scan's ticket counters for this "
-                               "stream do not exist yet: call it once on "
-                               "the stream before capturing")
-        t = torch.zeros((MAX_TICKETS,), dtype=torch.int32, device=dev)
-        _TICKETS[key] = t
+    with _TICKETS_LOCK:
+        t = _TICKETS.get(key)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the merging scan's ticket counters for "
+                                   "this stream do not exist yet: call it "
+                                   "once on the stream before capturing")
+            t = torch.zeros((MAX_TICKETS,), dtype=torch.int32, device=dev)
+            _TICKETS[key] = t
     return t
 
 

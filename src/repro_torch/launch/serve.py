@@ -14,9 +14,15 @@ times.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --continuous --arrival-rate 50 --step-level --slot-capacity 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --continuous --fault-schedule chaos --journal-dir /tmp/j --tenants 3
 
-Scripted faults, journals, tenants and the sharded index are later
-slices of the port: their flags are accepted and refused with an error.
+``--fault-schedule`` runs the trace under a scripted chaos schedule
+(``repro_torch.faults``) and fails if any accepted job is lost;
+``--journal-dir`` gives every node a durability journal, so a crashed
+node rejoins with its replayed cache; ``--tenants`` splits the trace
+across tagged tenants and prints their latency percentiles.  The sharded
+index (``--mesh-nodes`` > 1) is a later slice of the port and refused.
 """
 from __future__ import annotations
 
@@ -30,13 +36,14 @@ from repro_torch.core.lcu import POLICIES
 from repro_torch.core.policy import GenerationPolicy, Route
 from repro_torch.core.storage_classifier import StorageClassifier
 from repro_torch.core.system import CacheGenius, GenerationBackend
-from repro_torch.core.trace import RequestTrace, poisson_arrivals
+from repro_torch.core.trace import (RequestTrace, merge_arrivals,
+                                    poisson_arrivals)
 from repro_torch.core.vdb import BlobStore
 from repro_torch.data.synthetic import make_corpus, render_caption
+from repro_torch.faults import (FaultInjector, FaultSchedule,
+                                attach_journals)
+from repro_torch.faults.schedule import PRESETS as FAULT_PRESETS
 from repro_torch.runtime.serving import ServingEngine
-
-# flags of the JAX CLI that belong to later slices of the port
-_NOT_PORTED = ("fault_schedule", "fault_seed", "journal_dir", "tenants")
 
 
 def build_system(*, n_nodes: int = 4, corpus_n: int = 600,
@@ -149,16 +156,27 @@ def main(argv=None) -> int:
                     help="where the K-means fit, the cluster index and "
                     "the node dbs' scans run")
     ap.add_argument("--mesh-nodes", type=int, default=1)
-    for flag in _NOT_PORTED:
-        ap.add_argument("--" + flag.replace("_", "-"), dest=flag,
-                        default=None, nargs="?", const=True,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--fault-schedule", default=None,
+                    choices=sorted(FAULT_PRESETS),
+                    help="with --continuous: run under a scripted chaos "
+                    "schedule (repro_torch.faults preset, scaled to the "
+                    "fleet and trace), print the injector's audit report, "
+                    "and exit nonzero if ANY accepted job is lost")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the fault schedule's deterministic "
+                    "random draws (which blobs corrupt, etc.)")
+    ap.add_argument("--journal-dir", default=None,
+                    help="attach a per-node cache durability journal "
+                    "(WAL + snapshots) under this directory; crashed "
+                    "nodes in a --fault-schedule run then rejoin with "
+                    "their journal-replayed cache instead of cold")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="with --continuous: split the trace round-robin "
+                    "across N tagged tenants (tiers cycle premium/"
+                    "standard/batch), merge their Poisson processes "
+                    "deterministically, and print per-tenant/tier "
+                    "queue-delay + wall percentiles")
     args = ap.parse_args(argv)
-    given = [f for f in _NOT_PORTED if getattr(args, f) is not None]
-    if given:
-        ap.error("--" + given[0].replace("_", "-") + " is not part of the "
-                 "PyTorch port yet (faults, journals and tenants come in "
-                 "later slices); use the JAX package's repro.launch.serve")
     if args.mesh_nodes != 1:
         ap.error("--mesh-nodes > 1 (a sharded cluster index) is not part of "
                  "the PyTorch port yet")
@@ -166,8 +184,17 @@ def main(argv=None) -> int:
         ap.error("--max-batch must be >= 1")
     if args.arrival_rate <= 0:
         ap.error("--arrival-rate must be > 0")
+    if args.tenants < 0:
+        ap.error("--tenants must be >= 0")
+    if args.tenants > 1 and not args.continuous:
+        ap.error("--tenants requires --continuous")
     if args.step_level and not args.continuous:
         ap.error("--step-level requires --continuous")
+    if args.fault_schedule is not None and not args.continuous:
+        ap.error("--fault-schedule requires --continuous")
+    if args.fault_schedule is not None and args.fail_node is not None:
+        ap.error("--fault-schedule already scripts failures; "
+                 "drop --fail-node")
     if args.slot_capacity is not None and not args.step_level:
         ap.error("--slot-capacity requires --step-level")
     if args.slot_capacity is not None and args.slot_capacity < 1:
@@ -186,13 +213,44 @@ def main(argv=None) -> int:
         routing=args.routing, latent_depths=latent_depths,
         device=args.device)
     engine = ServingEngine(system, max_batch=args.max_batch)
+
+    journals = (attach_journals(system, args.journal_dir)
+                if args.journal_dir is not None else None)
+    injector = None
+    if args.fault_schedule is not None:
+        # horizon = injection boundaries the run will see: every
+        # denoising step in step-level mode, every admission group
+        # otherwise (events land at fixed fractions of it)
+        horizon = (args.requests if args.step_level
+                   else max(10, args.requests // args.max_batch))
+        schedule = FaultSchedule.preset(
+            args.fault_schedule, nodes=args.nodes, horizon=horizon,
+            seed=args.fault_seed)
+        injector = FaultInjector(system, schedule, journals=journals)
+
     reqs = list(RequestTrace(seed=1).generate(args.requests))
     half = len(reqs) // 2
     occupancy = []
     if args.continuous:
-        arrivals = poisson_arrivals(reqs, args.arrival_rate, seed=1)
+        if args.tenants > 1:
+            # one client among many: each tenant is its own tagged
+            # Poisson process, interleaved deterministically
+            tier_cycle = ("premium", "standard", "batch")
+            procs, offset = [], 0
+            for ti in range(args.tenants):
+                chunk = reqs[ti::args.tenants]
+                procs.append(poisson_arrivals(
+                    chunk, args.arrival_rate / args.tenants, seed=1 + ti,
+                    seed_base=offset, tenant=f"tenant{ti}",
+                    tier=tier_cycle[ti % len(tier_cycle)]))
+                offset += len(chunk)
+            arrivals = merge_arrivals(*procs)
+        else:
+            arrivals = poisson_arrivals(reqs, args.arrival_rate, seed=1)
         step_kw = (dict(step_level=True, slot_capacity=args.slot_capacity)
                    if args.step_level else {})
+        if injector is not None:
+            step_kw["on_step"] = injector.on_step
         if args.fail_node is not None:
             done = engine.run(arrivals[:half], **step_kw)
             occupancy += engine.slot_occupancy
@@ -267,6 +325,31 @@ def main(argv=None) -> int:
     print("stage walls        : " + "  ".join(
         f"{name} {np.percentile(v, 50) * 1e3:.1f}/"
         f"{np.percentile(v, 95) * 1e3:.1f}ms" for name, v in walls.items()))
+    tagged = engine.tagged_stats()
+    if tagged:
+        print("per-tenant/tier    : (queue-delay, wall p50/p95 ms)")
+        for (tenant, tier), s in tagged.items():
+            print(f"  {tenant or '-'}/{tier or '-':<9} n={s['n']:<4.0f} "
+                  f"qd {s['queue_delay_p50'] * 1e3:.2f}/"
+                  f"{s['queue_delay_p95'] * 1e3:.2f}  "
+                  f"wall {s['wall_p50'] * 1e3:.2f}/"
+                  f"{s['wall_p95'] * 1e3:.2f}")
+    if injector is not None:
+        injector.finish()
+        rep = injector.report()
+        print(f"chaos schedule     : {args.fault_schedule} "
+              f"(seed {args.fault_seed}, {rep['steps_seen']} injection "
+              f"boundaries seen)")
+        print(f"chaos actions      : {rep['actions']}")
+        print(f"chaos absorbed     : "
+              f"transient_retries={rep['transient_retries']}  "
+              f"corrupt_hits={rep['corrupt_hits']}  "
+              f"degraded_serves={rep['degraded_serves']}")
+        lost = len(reqs) - len(done)
+        if lost or any(c.result.image is None for c in done):
+            print(f"CHAOS FAIL         : {lost} accepted jobs lost")
+            return 1
+        print("chaos invariant    : zero accepted-job loss")
     return 0
 
 

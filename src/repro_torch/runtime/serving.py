@@ -16,9 +16,17 @@ the port of the JAX package's ``repro/runtime/serving.py``.
   process on a virtual clock, in continuous or fixed-drain mode, or with
   ``step_level=True`` at denoising-step granularity.
 
-Not ported here: the front door's tagged statistics
-(``tagged_stats`` / ``tenant_tier_stats``), the LM response cache and the
-AOT ``precompile`` (eager PyTorch has nothing to compile ahead).
+* :func:`tenant_tier_stats` — the front door's per-(tenant, tier)
+  latency percentiles (``ServingEngine.tagged_stats``).
+
+Not ported here: the LM response cache and the AOT ``precompile`` (eager
+PyTorch has nothing to compile ahead).
+
+Precision: the port holds the card to f32.  A ``DiffusionBackend`` built
+on a CUDA device turns TF32 off for matmuls and cuDNN convolutions
+(PyTorch's default runs the VAE's convolutions in TF32).  The flags are
+process globals, set once at construction, before any worker thread
+(the front door's dispatcher) runs the backend.
 
 Noise: the JAX backend draws each request's initial noise from
 ``jax.random.split(PRNGKey(seed))``.  The port does not copy threefry; it
@@ -89,6 +97,9 @@ class DiffusionBackend(GenerationBackend):
                  noise_fn: Optional[Callable] = None, device="cuda"):
         super().__init__()
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         self.dit = dit.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
         self.net_cfg = dit.cfg
@@ -733,3 +744,48 @@ class ServingEngine:
         """Grow the fleet by one fresh node (``CacheGenius.join_node``);
         returns its index.  Safe between groups."""
         return self.system.join_node(speed=speed, capacity=capacity)
+
+    def tagged_stats(self) -> Dict[Tuple[Optional[str], Optional[str]],
+                                   Dict[str, float]]:
+        """Per-(tenant, tier) latency percentiles over everything this
+        engine has completed (empty when traffic is untagged) — see
+        :func:`tenant_tier_stats`."""
+        return tenant_tier_stats(self.completed)
+
+
+def tenant_tier_stats(completed: Sequence[Completed],
+                      ) -> Dict[Tuple[Optional[str], Optional[str]],
+                                Dict[str, float]]:
+    """Queue-delay and wall-latency percentiles per (tenant, tier).
+
+    Groups tagged completions (requests whose ``tenant`` or ``tier`` is
+    set) and reports, per group: ``n``, ``queue_delay_p50/p95``,
+    ``wall_p50/p95`` (per-request measured pipeline wall ``wall_total``,
+    falling back to the batch-amortised ``wall_latency`` when a caller
+    built results without stage timestamps) and ``e2e_p50/p95``
+    (queue delay + wall).  Untagged completions are skipped; fully
+    untagged traffic returns ``{}``, which is the "don't print the
+    table" signal the serve CLI keys on.
+    """
+    groups: Dict[Tuple[Optional[str], Optional[str]], List[Completed]] = {}
+    for c in completed:
+        if c.request.tenant is None and c.request.tier is None:
+            continue
+        groups.setdefault((c.request.tenant, c.request.tier), []).append(c)
+    out: Dict[Tuple[Optional[str], Optional[str]], Dict[str, float]] = {}
+    for key in sorted(groups, key=lambda k: (str(k[0]), str(k[1]))):
+        cs = groups[key]
+        qd = np.array([c.queue_delay for c in cs])
+        wall = np.array([c.result.wall_total if c.result.wall_total > 0
+                         else c.result.wall_latency for c in cs])
+        e2e = qd + wall
+        out[key] = {
+            "n": len(cs),
+            "queue_delay_p50": float(np.percentile(qd, 50)),
+            "queue_delay_p95": float(np.percentile(qd, 95)),
+            "wall_p50": float(np.percentile(wall, 50)),
+            "wall_p95": float(np.percentile(wall, 95)),
+            "e2e_p50": float(np.percentile(e2e, 50)),
+            "e2e_p95": float(np.percentile(e2e, 95)),
+        }
+    return out

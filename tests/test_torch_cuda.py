@@ -4,10 +4,22 @@ limits, other head dims).  Marked ``cuda``: they skip without a GPU.
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance 2e-5 (f32 against f32, TF32 off); slot ids equal (the inputs
-are integer-valued, so every score and every tie is exact)."""
+Tolerance 2e-5 (f32 against f32); slot ids equal (the inputs are
+integer-valued, so every score and every tie is exact).  The tests leave
+PyTorch's float flags as they find them: the port sets its own precision
+(``DiffusionBackend`` turns TF32 off on the card).
+
+The last tests cover the front door's threads: a backend built under
+PyTorch's default flags (cuDNN TF32 on) holds the VAE to the CPU, a
+gateway serves from its worker thread the images a main-thread
+``serve_group`` gives, and the kernels' libraries and ticket buffers are
+made once whichever threads ask first."""
 from __future__ import annotations
 
+import sys
+import threading
+
+import numpy as np
 import pytest
 import torch
 
@@ -23,8 +35,6 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -362,3 +372,169 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     assert kernels.LAUNCHES_BY_SHAPE["groupnorm_silu"] == {(1, 4, 4, 64): 1}
     assert kernels.LAUNCHES_BY_SHAPE["flash_attention"] == {
         (2, 8, 8, 1, 64, 0): 1}
+
+
+# ---------------------------------------------------------------------------
+# the port's precision, and the front door's threads
+# ---------------------------------------------------------------------------
+
+# a VAE pass on the card against the CPU, relative to the output's scale
+# (chip_smoke.py's VAE_REL_TOL)
+VAE_REL_TOL = 1e-4
+
+
+def _small_models(seed: int = 0):
+    from repro_torch.models.diffusion.dit import (DiT, DiTConfig,
+                                                  perturb_zero_init_)
+    from repro_torch.models.diffusion.vae import VAE, VAEConfig
+    gen = torch.Generator().manual_seed(seed)
+    dit = DiT(DiTConfig(img_res=8, in_ch=4, patch=2, n_layers=2,
+                        d_model=128, n_heads=2, ctx_dim=512),
+              generator=gen)
+    perturb_zero_init_(dit, gen)
+    vae = VAE(VAEConfig(in_ch=3, base_ch=32, ch_mult=(1, 2), z_ch=4,
+                        n_res=1), generator=gen)
+    return dit.eval(), vae.eval()
+
+
+def _backend(dev, seed: int = 0):
+    from repro_torch.core.embeddings import ProxyClipEmbedder
+    from repro_torch.data.synthetic import render_caption
+    from repro_torch.runtime.serving import DiffusionBackend
+    dit, vae = _small_models(seed)
+    emb = ProxyClipEmbedder(render_caption)
+    return DiffusionBackend(dit, vae, lambda p: emb.embed_text([p])[0],
+                            device=dev)
+
+
+def test_backend_under_default_flags_holds_the_vae_to_the_cpu(dev):
+    """PyTorch's defaults run cuDNN convolutions in TF32; a backend built
+    on the card under them still encodes and decodes in f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False      # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    backend = _backend(dev)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    _, cpu_vae = _small_models()
+    gen = torch.Generator().manual_seed(7)
+    x = torch.rand((2, 32, 32, 3), generator=gen) * 2 - 1
+    z = torch.randn((2, 8, 8, 4), generator=gen)
+
+    def rel_errs():
+        with torch.no_grad():
+            return [float((got - want).abs().max() / want.abs().max())
+                    for got, want in (
+                        (backend.vae.encode(x.to(dev))[0].cpu(),
+                         cpu_vae.encode(x)[0]),
+                        (backend.vae.decode(z.to(dev)).cpu(),
+                         cpu_vae.decode(z)))]
+    errs = rel_errs()
+    print(f"VAE card vs CPU, as the backend leaves the flags: encode "
+          f"{errs[0]:.2e}, decode {errs[1]:.2e} of scale")
+    assert max(errs) <= VAE_REL_TOL, errs
+    # the check has teeth: with cuDNN's TF32 on, the same comparison
+    # misses by more than the tolerance
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = rel_errs()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"VAE card vs CPU, cuDNN TF32 on: encode {tf32[0]:.2e}, decode "
+          f"{tf32[1]:.2e} of scale")
+    assert max(tf32) > VAE_REL_TOL, tf32
+
+
+def _fleet(backend, dev):
+    from repro_torch.core.policy import GenerationPolicy
+    from repro_torch.launch.serve import build_system
+    system, _, _, _ = build_system(
+        n_nodes=2, corpus_n=60, capacity_per_node=80, seed=0,
+        policy=GenerationPolicy(steps_full=4, steps_ref=2), backend=backend,
+        device=dev)
+    return system
+
+
+def test_gateway_serves_from_its_worker_thread(dev):
+    """Every kernel of a group launches from the dispatcher's thread: the
+    images equal a main-thread ``serve_group`` of the same groups."""
+    from repro_torch.core.trace import RequestTrace
+    from repro_torch.frontdoor import Gateway
+    from repro_torch.runtime.serving import Request, ServingEngine
+    backend = _backend(dev)
+    reqs = list(RequestTrace(seed=1).generate(12))
+    gw = Gateway(ServingEngine(_fleet(backend, dev), max_batch=4),
+                 fair=False)
+    assert isinstance(gw.dispatcher._device_scope(), torch.cuda.device)
+    handles = [gw.submit(r.prompt, tenant=f"t{i % 2}", seed=i,
+                         quality_tier=r.quality_tier)
+               for i, r in enumerate(reqs)]
+    kernels.reset_launches()
+    gw.start()
+    try:
+        for h in handles:
+            h.wait(timeout=300)
+    finally:
+        gw.close(timeout=300)
+    assert not gw.dispatcher.running
+    assert kernels.LAUNCHES["vdb_topk_pernode"] > 0
+    assert kernels.LAUNCHES["flash_attention"] > 0
+    main = ServingEngine(_fleet(backend, dev), max_batch=4)
+    done = []
+    for i in range(0, len(reqs), 4):
+        done += main.serve_group([
+            Request(r.prompt, i + j, quality_tier=r.quality_tier)
+            for j, r in enumerate(reqs[i:i + 4])])
+    assert any(c.result.steps > 0 for c in done)
+    for h, c in zip(handles, done):
+        assert h.meta["route"] == (c.result.fast_path
+                                   or c.result.route.value)
+        assert h.meta["node"] == c.result.node
+        img, want = h.image(), np.asarray(c.result.image)
+        scale = max(float(np.abs(want).max()), 1.0)
+        np.testing.assert_allclose(img, want, rtol=0, atol=1e-5 * scale)
+
+
+def test_libraries_and_tickets_are_made_once_across_threads(dev):
+    from repro_torch.kernels import _build
+    mods = {"vdb_topk": vdb_topk, "flash_attention": flash_attention,
+            "groupnorm_silu": groupnorm_silu, "adaln": adaln}
+    _build.build_all()
+    for name in mods:
+        _build._LIBS.pop(name, None)
+    stream = torch.cuda.Stream(device=dev)
+    n = 16
+    barrier = threading.Barrier(n)
+    libs, tickets, errors = [], [], []
+
+    def work():
+        try:
+            barrier.wait(timeout=60)
+            libs.append({name: id(m._lib()) for name, m in mods.items()})
+            with torch.cuda.stream(stream):
+                tickets.append(vdb_topk._tickets(dev, 8).data_ptr())
+        except BaseException as exc:          # reported below
+            errors.append(exc)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert len(libs) == len(tickets) == n
+    assert all(d == libs[0] for d in libs)
+    assert len(set(tickets)) == 1
+    assert sum(1 for key in vdb_topk._TICKETS
+               if key[1] == stream.cuda_stream) == 1
+    assert vdb_topk._lib().vdb_topk_single_launch.argtypes is not None
+    # the reloaded libraries launch
+    q, slabs, valid, nids = _scan_case(dev, 4, 2, 64, 16, 3)
+    _same_topk(vdb_topk.launch_sharded(q, slabs, valid, nids, 4,
+                                       mask_nodes=False),
+               ref.vdb_topk_sharded_ref(q, slabs, valid, nids, 4,
+                                        mask_nodes=False))

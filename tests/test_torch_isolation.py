@@ -37,7 +37,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "repro_torch.kernels.adaln", "repro_torch.kernels.ops",
                 "repro_torch.core.cluster_index",
                 "repro_torch.runtime.serving", "repro_torch.launch.serve",
-                "repro_torch.convert"):
+                "repro_torch.convert", "repro_torch.core.journal",
+                "repro_torch.faults.injector",
+                "repro_torch.frontdoor.gateway",
+                "repro_torch.launch.frontdoor"):
         assert mod in report["modules"]
 
 

@@ -140,15 +140,24 @@ def test_serve_cli_drain_path(capsys):
     assert "requests           : 16" in out and "route mix" in out
 
 
-@pytest.mark.parametrize("flag", [["--journal-dir", "journals"],
+@pytest.mark.parametrize("flag", [["--journal-dir", "journals",
+                                   "--fault-schedule", "chaos"],
                                   ["--tenants", "3"],
                                   ["--fault-schedule", "mixed"],
                                   ["--mesh-nodes", "2"]])
 def test_serve_cli_refuses_later_slices(flag, capsys):
+    """Faults, journals and tenants are ported: their flags are refused
+    only where the reference refuses them (a chaos schedule or tenants
+    without ``--continuous``, an unknown preset).  The sharded index is
+    still a later slice."""
     with pytest.raises(SystemExit) as exc:
         tserve.main(flag + ["--device", "cpu"])
     assert exc.value.code == 2
-    assert "not part of the PyTorch port" in capsys.readouterr().err
+    want = {"--journal-dir": "--fault-schedule requires --continuous",
+            "--tenants": "--tenants requires --continuous",
+            "--fault-schedule": "invalid choice: 'mixed'",
+            "--mesh-nodes": "not part of the PyTorch port"}[flag[0]]
+    assert want in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags,mode", [
