@@ -60,8 +60,26 @@ failure exits nonzero (nothing is caught):
    trace on an identical fleet (routes and nodes equal, images within
    ``IMAGE_REL_TOL``, bitwise reported); per-tenant p50/p95 and the Jain
    index.
-   Launch counts are zeroed right before each drive of 3-3e and read
-   right after (and printed per shape for 3d-3e); a kernel of a
+3f. mesh scans — the cluster scans' inputs (4 nodes x 400 x 512,
+   integer-valued) split over a node mesh of 2 and of 3 shards (4 nodes
+   pad to 6: the third shard holds pad nodes only) on this card: each
+   shard's K1 and K2 (node-masked, with shard-local node ids, and
+   global) against the plain versions, slot ids equal; the host-merged
+   lists against one device's K1/K2, slots and scores equal; the K1 scan
+   wall of the mesh against one device.  Where the process sees two
+   cards or more, the same with one shard per card.
+3g. mesh serve — ``build_system(n_nodes=4, res=256, mesh_nodes=3)``
+   with its three shards on this card serves the serve drive's 16
+   requests (score, then centroid routing): routes, nodes, images and
+   cache state equal the serve drive's, bitwise, and a mesh-1 twin's
+   (a copy of the fleet as built).  Then on both, node 3 crashes and
+   rejoins from its journal and a fifth node joins (5 nodes padded to 6,
+   new shard boundaries); 8 more requests; mesh and twin equal bitwise.
+   K1/K2 launch once per shard per micro-batch.  Prints the gathered
+   list bytes, the slab bytes on the card against mesh 1, the memory
+   allocated and the drive walls beside the twin's.
+   Launch counts are zeroed right before each drive of 3-3e and 3g and
+   read right after (and printed per shape for 3d-3e); a kernel of a
    drive's path with no launch fails.  The per-shape counts of those
    drives are then timed shape by shape and ranked by launches x
    (device - bound).
@@ -496,9 +514,29 @@ def check_adaln(gen, dev) -> dict:
                max_abs_err=max(r["max_abs_err"] for r in per_batch),
                tol=KERNEL_TOL, per_batch=per_batch,
                shape=f"x (8, {t}, {dm}), shift/scale (8, {dm}) strided")
+    row["guard_us"] = guard_us(x8)
     log(f"[kernels] adaln_modulate: same bits for an image alone; tol "
-        f"{KERNEL_TOL}")
+        f"{KERNEL_TOL}; the launch's device guard costs "
+        f"{row['guard_us']:.3f} us of host time a call (kernel wrappers "
+        "launch on their tensors' card)")
     return row
+
+
+def guard_us(t) -> float:
+    """Host microseconds that ``_build.launch``'s device guard adds to a
+    launch on the current device: the guard around a no-op against the
+    no-op alone, best of 5 runs of 20000 calls each."""
+    import timeit
+
+    from repro_torch.kernels import _build
+
+    def noop(*args):
+        return 0
+
+    def best(fn):
+        return min(timeit.repeat(fn, number=20000, repeat=5)) / 20000 * 1e6
+    return best(lambda: _build.launch(t, noop, 1, 2)) - best(
+        lambda: noop(1, 2))
 
 
 def fa_bound(b: int, sq: int, sk: int, h: int, d: int):
@@ -1082,7 +1120,7 @@ def run_serve(dev, n_requests: int, profile: bool = False):
     engine = ServingEngine(system, max_batch=8)
     log(f"[serve] build_system(n_nodes=4, res={SERVE_RES}) + dit-b2/full-VAE "
         f"init {time.perf_counter() - t0:.1f}s; slabs "
-        f"{tuple(system.cluster_index._slabs.shape)}")
+        f"{tuple(system.cluster_index.shards[0][0].shape)}")
     reqs = [(r.prompt, r.quality_tier)
             for r in RequestTrace(seed=1).generate(n_requests + 8)]
     done, counts, wall, walls = drive(engine, reqs[:n_requests], 0)
@@ -1107,6 +1145,11 @@ def run_serve(dev, n_requests: int, profile: bool = False):
         raise AssertionError("centroid-routed drive never launched "
                              "vdb_topk_sharded")
     system.routing = "score"
+    # what the mesh drive (phase 3g) must give, bitwise
+    record = dict(routes=[c.result.route.name for c in done + done2],
+                  nodes=[c.result.node for c in done + done2],
+                  images=[np.asarray(c.result.image) for c in done + done2],
+                  state=cache_state(system), walls=walls + walls2)
     prof = None
     if profile:      # a fresh trace, so that the drive generates images
         fresh = [(r.prompt, r.quality_tier)
@@ -1129,7 +1172,7 @@ def run_serve(dev, n_requests: int, profile: bool = False):
         centroid_batch_walls_s=walls2, launches_score=counts,
         launches_centroid=counts2, stage_p50_ms=stage_p50_ms(done),
         profile=prof)
-    return system, backend, launches, summary
+    return system, backend, launches, summary, record
 
 
 def drive_run(engine, arrivals, count_shapes: bool = True, **kw):
@@ -1703,6 +1746,249 @@ def run_frontdoor(dev, backend, workdir: Path):
         launches_by_shape_direct=by_shape_direct)
 
 
+# ---------------------------------------------------------------------------
+# phase 3f/3g: the node mesh
+# ---------------------------------------------------------------------------
+
+
+def host_ms(fn, n: int = 50) -> float:
+    """Median host-clock time per call of ``fn``, which ends in a copy to
+    the host (so each call waits for its device work)."""
+    import numpy as np
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def mesh_scan_case(gen, dev, devs, k: int = 8) -> dict:
+    """The drive fleet's scan inputs (4 nodes x 400 x 512, integer-valued,
+    node 3 empty) split over a mesh on ``devs``: each shard's K1 and K2
+    (node-masked with shard-local node ids, and global) against the plain
+    versions on its device, slot ids equal; then the host-merged lists
+    against one device's K1/K2 over the unsplit slab, slots and scores
+    equal (a row's score does not depend on the split: a node's rows go
+    to the same blocks, summed in the same order, whatever the shard).
+    Returns the scan walls (host clock, lists brought back) of one
+    device's K1 and of the mesh's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, vdb_topk
+    from repro_torch.runtime import partition
+    q, slabs, valid, nids = scan_inputs(gen, ties=True, dev=dev)
+    mesh = len(devs)
+    padded = partition.padded_nodes(4, mesh)
+    n = padded // mesh
+    full_s = torch.zeros((2, padded, 400, 512), device=dev)
+    full_s[:, :4] = slabs
+    full_v = torch.zeros((padded, 400), dtype=torch.bool, device=dev)
+    full_v[:4] = valid
+    shards = [(full_s[:, s * n:(s + 1) * n].contiguous().to(d),
+               full_v[s * n:(s + 1) * n].contiguous().to(d))
+              for s, d in enumerate(devs)]
+    err = 0.0
+    for s, (sl, va) in enumerate(shards):
+        res = check_scans(q.to(sl.device), sl, va,
+                          (nids - s * n).to(sl.device), k, exact=True)
+        err = max([err] + [e for e, _ in res.values()])
+    nid = nids.cpu().numpy()
+    got = ops.vdb_topk_pernode_mesh(q, shards, k)
+    one = [t.cpu().numpy() for t in vdb_topk.launch_pernode(q, slabs,
+                                                            valid, k)]
+    same = [np.array_equal(got[0][:, :4], one[0]),
+            np.array_equal(got[1][:, :4], one[1])]
+    for mask in (True, False):
+        lists = ops.vdb_topk_sharded_mesh(q, shards, nid, k,
+                                          mask_nodes=mask)
+        merged = ops.merge_shard_topk(*lists, k)
+        one2 = [t.cpu().numpy() for t in vdb_topk.launch_sharded(
+            q, slabs, valid, nids, k, mask_nodes=mask)]
+        same += [np.array_equal(merged[0], one2[0]),
+                 np.array_equal(merged[1], one2[1])]
+    if not all(same):
+        raise AssertionError(f"mesh of {mesh} on {devs}: merged lists != "
+                             f"one device's ({same})")
+    walls = dict(
+        one_device_ms=host_ms(lambda: [t.cpu().numpy() for t in
+                                       vdb_topk.launch_pernode(
+                                           q, slabs, valid, k)]),
+        mesh_ms=host_ms(lambda: ops.vdb_topk_pernode_mesh(q, shards, k)))
+    torch.cuda.synchronize()
+    log(f"[mesh] scans over {mesh} shards on "
+        f"{', '.join(str(d) for d in devs)} (4 nodes padded to {padded}): "
+        f"each shard's K1/K2 = plain (slot ids equal, err {err:.2e}); "
+        f"merged = one device's K1/K2, slots and scores; K1 scan wall "
+        f"(lists on the host) {walls['mesh_ms']:.4f} ms against "
+        f"{walls['one_device_ms']:.4f} ms on one device")
+    return dict(devices=[str(d) for d in devs], padded=padded,
+                max_abs_err=err, **walls)
+
+
+def run_mesh_scans(dev) -> dict:
+    """Phase 3f: mesh scans over 2 and 3 shards on this card, and, where
+    the process sees two cards or more, one shard per card."""
+    import torch
+    gen = torch.Generator().manual_seed(17)
+    out = {f"mesh{m}_one_card": mesh_scan_case(gen, dev, [dev] * m)
+           for m in (2, 3)}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        for m in sorted({2, min(n, 4)}):
+            devs = [torch.device("cuda", i) for i in range(m)]
+            out[f"mesh{m}_one_card_each"] = mesh_scan_case(gen, dev, devs)
+            out[f"mesh{m}_same_card"] = mesh_scan_case(gen, dev, [dev] * m)
+    else:
+        log("[mesh] one card: no mesh with a shard per card")
+    return out
+
+
+def journal_rejoin(system, journals, node: int) -> None:
+    """Crash ``node`` and rejoin it with its journal's replay (the fault
+    injector's journaled rejoin)."""
+    system.crash_node(node)
+    cur = system.dbs[node]
+    db = journals[node].replay(cur.dim, cur.capacity, name=cur.name,
+                               use_pallas=cur.use_pallas, device=cur.device)
+    db.attach_journal(journals[node])
+    system.rejoin_node(node, db)
+
+
+def run_mesh_serve(dev, backend, record: dict, n_requests: int,
+                   workdir: Path):
+    """Phase 3g: ``build_system(n_nodes=4, res=256, mesh_nodes=3)`` with
+    its three shards on this card serves the serve drive's requests
+    (score, then centroid routing) and must give the serve drive's
+    routes, nodes, images and cache state, bitwise.  A mesh-1 twin (a
+    copy of the fleet as built, its index restacked on one shard) takes
+    the same steps.  Then on both: node 3 crashes and rejoins from its
+    journal, a fifth node joins (5 nodes, padded to 6: new shard
+    boundaries), and 8 more requests are served; the two must agree
+    bitwise.  K1/K2 launch once per shard per micro-batch."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.trace import RequestTrace
+    from repro_torch.faults import attach_journals
+    from repro_torch.launch.serve import build_system
+    from repro_torch.runtime.serving import ServingEngine
+    t0 = time.perf_counter()
+    mesh, _, _, _ = build_system(n_nodes=4, res=SERVE_RES, backend=backend,
+                                 device=dev, mesh_nodes=3,
+                                 mesh_devices=[dev] * 3)
+    # the twin shares the models and the embedder, and copies the rest
+    twin = copy.deepcopy(mesh, memo={id(backend): backend,
+                                     id(mesh.embedder): mesh.embedder})
+    twin.mesh_nodes, twin.mesh = 1, None
+    twin._restack_cluster()
+    build_s = time.perf_counter() - t0
+    ci = mesh.cluster_index
+    bytes_mesh, bytes_one = (ci.per_device_slab_bytes(),
+                             twin.cluster_index.per_device_slab_bytes())
+    reqs = [(r.prompt, r.quality_tier)
+            for r in RequestTrace(seed=1).generate(n_requests + 8)]
+    more = [(r.prompt, r.quality_tier)
+            for r in RequestTrace(seed=11).generate(8)]
+    runs, launch_sum = {}, []
+    for name, system in (("mesh", mesh), ("twin", twin)):
+        engine = ServingEngine(system, max_batch=8)
+        journals = attach_journals(system, str(workdir / f"mesh_{name}"),
+                                   snapshot_every=16)
+        done, c1, w1, b1 = drive(engine, reqs[:n_requests], 0)
+        system.routing = "centroid"
+        done2, c2, w2, b2 = drive(engine, reqs[n_requests:], n_requests)
+        system.routing = "score"
+        first = dict(routes=[c.result.route.name for c in done + done2],
+                     nodes=[c.result.node for c in done + done2],
+                     images=[np.asarray(c.result.image)
+                             for c in done + done2],
+                     state=cache_state(system))
+        # a restack builds a new index, whose stats start at zero
+        gathered = system.cluster_index.stats["allgather_bytes"]
+        t1 = time.perf_counter()
+        journal_rejoin(system, journals, 3)
+        system.join_node()
+        restack_ms = (time.perf_counter() - t1) * 1e3
+        done3, c3, w3, b3 = drive(engine, more, 100)
+        runs[name] = dict(
+            first=first, routes=[c.result.route.name for c in done3],
+            nodes=[c.result.node for c in done3],
+            images=[np.asarray(c.result.image) for c in done3],
+            state=cache_state(system), counts=(c1, c2, c3),
+            walls=(w1, w2, w3), batch_walls=b1 + b2 + b3,
+            restack_ms=restack_ms,
+            allgather_bytes=(gathered,
+                             system.cluster_index.stats["allgather_bytes"]))
+        launch_sum += [c1, c2, c3]
+    m, t = runs["mesh"], runs["twin"]
+    for what, a, b in (("serve drive", m["first"], record),
+                       ("mesh-1 twin", m["first"], t["first"]),
+                       ("mesh-1 twin after crash, rejoin and join", m, t)):
+        for key in ("routes", "nodes", "state"):
+            if a[key] != b[key]:
+                raise AssertionError(f"mesh drive != {what}: {key}")
+        if len(a["images"]) != len(b["images"]) or not all(
+                np.array_equal(x, y) for x, y in zip(a["images"],
+                                                     b["images"])):
+            raise AssertionError(f"mesh drive != {what}: images differ")
+    images_rel_err(m["images"], t["images"], backend.image_res)
+    ci = mesh.cluster_index
+    if (ci.mesh_nodes, ci.n_nodes, ci.padded_nodes) != (3, 5, 6) or \
+            ci.mesh.devices != (dev,) * 3:
+        raise AssertionError(f"mesh after the join: {ci.mesh_nodes} "
+                             f"shards, {ci.n_nodes} nodes, "
+                             f"{ci.padded_nodes} padded")
+    # K1 (score routing) and K2 (centroid routing) once per shard per
+    # micro-batch: three times the twin's launches, drive by drive
+    for c_m, c_t in zip(m["counts"], t["counts"]):
+        for scan in ("vdb_topk_pernode", "vdb_topk_sharded"):
+            if c_m[scan] != 3 * c_t[scan]:
+                raise AssertionError(f"{scan}: {c_m[scan]} launches on the "
+                                     f"mesh, {c_t[scan]} on one device")
+    per_batch = {}
+    for i, scan in enumerate(("vdb_topk_pernode", "vdb_topk_sharded")):
+        if not t["counts"][i][scan]:
+            raise AssertionError(f"the {('score', 'centroid')[i]}-routed "
+                                 f"drive never launched {scan}")
+        per_batch[scan] = m["counts"][i][scan] / t["counts"][i][scan]
+    torch.cuda.synchronize()
+    out = dict(
+        build_s=build_s, launches_per_micro_batch=per_batch,
+        allgather_bytes=dict(zip(("score_and_centroid", "after_join"),
+                                 m["allgather_bytes"])),
+        per_device_slab_bytes=dict(mesh3_one_card=bytes_mesh,
+                                   mesh1=bytes_one,
+                                   after_join=ci.per_device_slab_bytes()),
+        memory_allocated=torch.cuda.memory_allocated(dev),
+        walls_s=dict(mesh=m["walls"], twin=t["walls"],
+                     serve_drive=record["walls"]),
+        batch_walls_s=dict(mesh=m["batch_walls"], twin=t["batch_walls"]),
+        restack_ms=dict(mesh=m["restack_ms"], twin=t["restack_ms"]),
+        launches=dict(mesh=m["counts"], twin=t["counts"]),
+        routes_after_join=m["routes"])
+    log(f"[mesh] build_system(n_nodes=4, res={SERVE_RES}, mesh_nodes=3) on "
+        f"{dev} x3 + a mesh-1 twin {build_s:.1f}s; drives (score, "
+        f"centroid, after crash/rejoin/join) mesh "
+        + ", ".join(f"{w:.2f}" for w in m["walls"]) + " s, twin "
+        + ", ".join(f"{w:.2f}" for w in t["walls"]) + " s; routes, nodes, "
+        "images and cache state = the serve drive's and the twin's, "
+        f"bitwise; K1/K2 launches per micro-batch {per_batch}; "
+        f"lists gathered {m['allgather_bytes'][0]} B over the first 16 "
+        f"requests, {m['allgather_bytes'][1]} B after the join (twin "
+        f"{t['allgather_bytes']}); slab bytes on the card "
+        f"{bytes_mesh} (mesh 1: {bytes_one}; after the join "
+        f"{out['per_device_slab_bytes']['after_join']}); memory allocated "
+        f"{out['memory_allocated'] / 1e6:.1f} MB; crash + journal rejoin + "
+        f"join {m['restack_ms']:.1f} ms (twin {t['restack_ms']:.1f})")
+    total = {k: sum(c[k] for c in launch_sum) for k in launch_sum[0]}
+    return total, out
+
+
 def check_vaes(backend, dev) -> dict:
     """The full VAE with K6 against the plain VAE on the card, and a small
     VAE on the card against the CPU."""
@@ -1897,8 +2183,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     rows = run_kernel_checks(dev)
-    system, backend, launches, summary = run_serve(dev, args.requests,
-                                                   profile=args.profile)
+    system, backend, launches, summary, record = run_serve(
+        dev, args.requests, profile=args.profile)
     flags = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                  cudnn=torch.backends.cudnn.allow_tf32)
     log(f"[card] float flags as the port leaves them (DiffusionBackend on "
@@ -1917,7 +2203,10 @@ def main() -> int:
                                                  Path(workdir))
         c_front, summary["frontdoor"] = run_frontdoor(dev, backend,
                                                       Path(workdir))
-    for c in counts + (c_alone,) + c_faults + c_front:
+        summary["mesh_scans"] = run_mesh_scans(dev)
+        c_mesh, summary["mesh"] = run_mesh_serve(
+            dev, backend, record, args.requests, Path(workdir))
+    for c in counts + (c_alone,) + c_faults + c_front + (c_mesh,):
         launches = {k: launches.get(k, 0) + c[k] for k in c}
     for r in rows:
         if launches[r["name"]] == 0:

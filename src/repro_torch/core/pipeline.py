@@ -343,10 +343,10 @@ class ScheduleStage:
     Retrieve therefore cost exactly ONE device scan per micro-batch,
     pinned by the call-count test in ``tests/test_scheduling_score.py``.
     The contract is mesh-transparent: with a sharded cluster index
-    (``mesh_nodes > 1``) the same single call becomes one ``shard_map``
-    launch whose per-device scans run concurrently — still one
-    ``fused_scans`` tick, still bitwise-identical routing (pinned by
-    ``tests/test_cluster_sharded.py``).
+    (``mesh_nodes > 1``) the same single call launches one scan per
+    shard, each on its shard's device — still one ``fused_scans`` tick,
+    still bitwise-identical routing (pinned by
+    ``tests/test_torch_mesh.py``).
     """
 
     name = "Schedule"

@@ -2,8 +2,9 @@
 
 The port of the JAX package's ``repro/core/system.py``: the orchestrator
 is the same host code; its cluster index lives on ``device`` (the card
-by default) and scans through the CUDA kernels.  Sharding the index over
-a device mesh (``mesh_nodes > 1``) is a later slice of the port.
+by default) and scans through the CUDA kernels.  ``mesh_nodes > 1``
+shards the index over a node mesh (``mesh_devices``, or one card per
+shard), kept across every restack.
 
 Every request — sequential or batched — flows through the SAME explicit
 pipeline (``repro_torch.core.pipeline.ServePipeline``):
@@ -84,6 +85,7 @@ from repro_torch.core.prompt_optimizer import PromptOptimizer
 from repro_torch.core.scheduler import NodeInfo, RequestScheduler
 from repro_torch.core.storage_classifier import StorageClassifier
 from repro_torch.core.vdb import BlobStore, VectorDB
+from repro_torch.launch.mesh import make_node_mesh
 
 __all__ = ["CacheGenius", "CallableBackend", "GenerationBackend", "Plan",
            "RequestState", "Route", "ServePipeline", "ServeResult",
@@ -186,7 +188,8 @@ class CacheGenius:
                  routing: str = "score",
                  latent_depths=None,
                  pipeline: Optional[ServePipeline] = None,
-                 device="cuda"):
+                 device="cuda",
+                 mesh_devices: Optional[Sequence] = None):
         if routing not in ("score", "centroid"):
             raise ValueError(
                 f"routing must be 'score' or 'centroid', got {routing!r}")
@@ -215,14 +218,16 @@ class CacheGenius:
         # state lives on device (ONE build-time upload, incremental row
         # updates from every add/evict) and the Schedule/Retrieve stages
         # issue ONE fused scan per micro-batch across all touched nodes.
-        # mesh_nodes > 1 (a sharded index) raises in ClusterIndex: it is
-        # not part of the PyTorch port yet.
+        # mesh_nodes > 1 shards the slabs over a node mesh, built once
+        # here (each shard scans on its own device; results stay bitwise
+        # identical) and kept across every re-stack (join/crash/rejoin).
         self.mesh_nodes = int(mesh_nodes)
         self.device = device
-        self.cluster_index = (
-            ClusterIndex.from_dbs(self.dbs, mesh_nodes=self.mesh_nodes,
-                                  device=device)
-            if use_cluster_index and self.dbs else None)
+        self.mesh = (make_node_mesh(self.mesh_nodes, device,
+                                    devices=mesh_devices)
+                     if self.mesh_nodes > 1 else None)
+        self.cluster_index = (self._build_cluster_index()
+                              if use_cluster_index and self.dbs else None)
         # routing="score" (default): the Schedule stage routes on each
         # request's TRUE best composite match per node from the cluster
         # scan, blended with load + expected latency; "centroid" is the
@@ -445,8 +450,15 @@ class CacheGenius:
             return
         for d in self.dbs:
             d.unregister_cluster(self.cluster_index)
-        self.cluster_index = ClusterIndex.from_dbs(
-            self.dbs, mesh_nodes=self.mesh_nodes, device=self.device)
+        self.cluster_index = self._build_cluster_index()
+
+    def _build_cluster_index(self) -> ClusterIndex:
+        """The fleet's cluster index, on the mesh's devices where there
+        is a mesh (a join may change the padding and every shard
+        boundary)."""
+        return ClusterIndex.from_dbs(
+            self.dbs, mesh_nodes=self.mesh_nodes, device=self.device,
+            mesh_devices=None if self.mesh is None else self.mesh.devices)
 
     def join_node(self, *, speed: float = 1.0,
                   capacity: Optional[int] = None) -> int:

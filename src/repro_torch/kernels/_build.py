@@ -140,6 +140,20 @@ def stream(t) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+def launch(t, fn, *args) -> int:
+    """``fn(*args)``, a C launcher, with the CUDA runtime's current device
+    set to ``t``'s.  A launcher launches on the current device and keeps
+    its kernel attributes per device, and the caller's current device may
+    be another card of the process.  The device switches only where the
+    two differ (one look-up otherwise: K5's host time per call counts),
+    and back afterwards."""
+    dev = t.get_device()
+    if torch._C._cuda_getDevice() == dev:
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C launcher returned a nonzero ``cudaGetLastError()``."""
     if err != 0:

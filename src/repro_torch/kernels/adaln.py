@@ -83,6 +83,8 @@ def launch(x, shift, scale, *, eps: float = 1e-5):
     if not (x.is_cuda and shift.is_cuda and scale.is_cuda and x.dtype == f32
             and shift.dtype == f32 and scale.dtype == f32):
         _refuse(x, shift, scale)
+    if not x.get_device() == shift.get_device() == scale.get_device():
+        raise ValueError("x, shift and scale must be on one device")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (B, T, D) tensor")
     b, t, d = x.shape
@@ -95,9 +97,9 @@ def launch(x, shift, scale, *, eps: float = 1e-5):
     if b * t == 0 or x_ptr % 16:
         raise ValueError("x must be non-empty and 16-byte aligned")
     out = torch.empty_like(x)
-    err = _lib().adaln_launch(
-        x_ptr, sh_ptr, sc_ptr, out.data_ptr(), b, t, d, sh_sb, sc_sb,
-        warps_per_block(b * t), eps, _build.stream(x))
+    err = _build.launch(
+        x, _lib().adaln_launch, x_ptr, sh_ptr, sc_ptr, out.data_ptr(), b,
+        t, d, sh_sb, sc_sb, warps_per_block(b * t), eps, _build.stream(x))
     _build.check(err, "adaln_modulate")
     kernels.count_launch("adaln_modulate", (b, t, d))
     return out

@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int BK = 64;          // keys per tile
@@ -404,14 +406,21 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+constexpr int MAX_DEVICES = 64;       // cards whose settings are kept
+
+// the current device's SM count, looked up once per device (132 where it
+// cannot be read)
 int sm_count() {
-  static int n = 0;
+  static std::atomic<int> count[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+    return 132;
+  int n = count[dev].load(std::memory_order_relaxed);
   if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
       n = 132;
+    count[dev].store(n, std::memory_order_relaxed);
   }
   return n;
 }
@@ -458,13 +467,19 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, float* o, int b,
            int h, int sq, int sk, const long long* st, float scale,
            int causal, cudaStream_t stream) {
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_MAX);
+  // the attribute holds for one device: set once on each (always to the
+  // same value, so threads that race set it alike)
+  static std::atomic<bool> ready[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(flash_fwd_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
-    ready = true;
+    ready[dev].store(true, std::memory_order_release);
   }
   const Layout L = layout<D>(b, h, sq, sk);
   dim3 grid((sq + ROWS * L.qw - 1) / (ROWS * L.qw), h, b);

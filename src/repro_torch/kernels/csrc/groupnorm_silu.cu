@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -73,6 +75,7 @@ constexpr int MIN_BLOCK_PX = 256;         // pixels per block, at least
 constexpr int TILE_SHARED = 92 * 1024;    // x on chip, two blocks an SM
 constexpr int TILE_ALONE = 160 * 1024;    // x on chip, one block an SM
 constexpr int LOADS = 4;                  // global reads in flight a thread
+constexpr int MAX_DEVICES = 64;           // cards whose settings are kept
 
 struct Plan {
   int cs;       // channels per slice
@@ -381,19 +384,27 @@ gn_silu_fused(const float* __restrict__ x, const float* __restrict__ scale,
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Let the kernel take `smem` bytes of shared memory and clusters of 16
-// (the attribute only ever grows).
+std::mutex allow_lock;
+
+// Let the kernel take `smem` bytes of shared memory and clusters of 16 on
+// the current device.  Kernel attributes hold for one device, so what was
+// allowed is kept per device.  The attribute only ever grows; the lock
+// keeps two threads from setting it in turn and shrinking it.
 cudaError_t allow(size_t smem) {
-  static size_t allowed = 0;
-  cudaError_t e = cudaSuccess;
-  if (allowed == 0)
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(allow_lock);
+  if (allowed[dev] == 0)
     e = cudaFuncSetAttribute(gn_silu_fused,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess && smem > allowed) {
+  if (e == cudaSuccess && smem > allowed[dev]) {
     e = cudaFuncSetAttribute(gn_silu_fused,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-    if (e == cudaSuccess) allowed = smem;
+    if (e == cudaSuccess) allowed[dev] = smem;
   }
   return e;
 }

@@ -93,6 +93,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -109,6 +111,7 @@ constexpr int MAX_CLUSTER = 8;           // the portable cluster size
 constexpr int MAX_STAGES = 4;
 constexpr int SMEM_LIMIT = 232448;       // a block's shared memory
 constexpr int MAX_TREE = 2 * WARPS;      // lists the tree's first level takes
+constexpr int MAX_DEVICES = 64;          // cards whose settings are kept
 
 enum Mode { PER_NODE = 0, MASKED_NODES = 1, GLOBAL = 2 };
 
@@ -546,17 +549,25 @@ cudaLaunchConfig_t scan_config(int cl, int pn, int n_qtiles, size_t smem,
   return cfg;
 }
 
-// `smem` bytes of dynamic shared memory for scan_fused<QT, MODE> (the
-// attribute only ever grows)
+std::mutex allow_lock;
+
+// `smem` bytes of dynamic shared memory for scan_fused<QT, MODE> on the
+// current device.  A kernel attribute holds for one device only, so what
+// was allowed is kept per device.  The attribute only ever grows; the
+// lock keeps two threads from setting it in turn and shrinking it.
 template <int QT, int MODE>
 cudaError_t scan_allow(size_t smem) {
-  static size_t allowed = 0;
-  cudaError_t e = cudaSuccess;
-  if (smem > allowed) {
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(allow_lock);
+  if (smem > allowed[dev]) {
     e = cudaFuncSetAttribute(scan_fused<QT, MODE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-    if (e == cudaSuccess) allowed = smem;
+    if (e == cudaSuccess) allowed[dev] = smem;
   }
   return e;
 }

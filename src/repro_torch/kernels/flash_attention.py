@@ -69,6 +69,8 @@ def launch(q, k, v, *, causal: bool = False):
                              "contiguous last axis")
         if any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned per row")
+    if not q.device == k.device == v.device:
+        raise ValueError("q, k and v must be on one device")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if (k.shape != v.shape or k.shape[0] != b or k.shape[2] != h
@@ -83,9 +85,10 @@ def launch(q, k, v, *, causal: bool = False):
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
     stream = _build.stream(q)
-    err = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq,
-        sk, d, ctypes.cast(strides, _P), d ** -0.5, int(causal), stream)
+    err = _build.launch(
+        q, _lib().flash_attention_launch, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
+        ctypes.cast(strides, _P), d ** -0.5, int(causal), stream)
     _build.check(err, "flash_attention")
     kernels.count_launch("flash_attention", (b, sq, sk, h, d, int(causal)))
     return out

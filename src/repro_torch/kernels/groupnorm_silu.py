@@ -86,6 +86,8 @@ def launch(x, scale, bias, *, groups: int = 32, eps: float = 1e-5):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if not x.device == scale.device == bias.device:
+        raise ValueError("x, scale and bias must be on one device")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -100,9 +102,10 @@ def launch(x, scale, bias, *, groups: int = 32, eps: float = 1e-5):
                          f"{tuple(x.shape)}")
     out = torch.empty_like(x)
     stream = _build.stream(x)
-    err = lib.groupnorm_silu_launch(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
-        h * w, c, num_groups(c, groups), eps, stream)
+    err = _build.launch(
+        x, lib.groupnorm_silu_launch, x.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), b, h * w, c, num_groups(c, groups),
+        eps, stream)
     _build.check(err, "groupnorm_silu")
     kernels.count_launch("groupnorm_silu", (b, h, w, c))
     return out

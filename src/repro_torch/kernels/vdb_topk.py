@@ -147,6 +147,8 @@ def _check_inputs(queries, slabs, valid, k: int):
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if not queries.device == slabs.device == valid.device:
+        raise ValueError("queries, slabs and valid must be on one device")
     if queries.dtype != torch.float32 or slabs.dtype != torch.float32:
         raise TypeError("queries and slabs must be float32")
     if valid.dtype != torch.bool:
@@ -207,10 +209,11 @@ def launch_pernode(queries, slabs, valid, k: int):
                         device=dev)
     out_i = torch.empty((n_idx, n_nodes, qn, k), dtype=torch.int32,
                         device=dev)
-    err = _lib().vdb_topk_pernode_launch(
-        queries.data_ptr(), slabs.data_ptr(), valid.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), n_idx, n_nodes, cap, d, qn, k,
-        *_plan_args(p), _build.stream(queries))
+    err = _build.launch(
+        queries, _lib().vdb_topk_pernode_launch, queries.data_ptr(),
+        slabs.data_ptr(), valid.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr(), n_idx, n_nodes, cap, d, qn, k, *_plan_args(p),
+        _build.stream(queries))
     _build.check(err, "vdb_topk_pernode")
     kernels.count_launch("vdb_topk_pernode", (qn, *slabs.shape, k))
     return out_s, out_i
@@ -239,9 +242,10 @@ def launch_sharded(queries, slabs, valid, node_ids, k: int, *,
     n_tickets = n_idx * -(-qn // p["query_tile"]) * p["cluster_blocks"]
     merge = _merge_buffers(dev, (n_idx, n_nodes, qn, k), n_tickets,
                            not mask_nodes)
-    err = _lib().vdb_topk_sharded_launch(
-        queries.data_ptr(), slabs.data_ptr(), valid.data_ptr(),
-        node_ids.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+    err = _build.launch(
+        queries, _lib().vdb_topk_sharded_launch, queries.data_ptr(),
+        slabs.data_ptr(), valid.data_ptr(), node_ids.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(),
         *_ptrs(merge), n_idx, n_nodes, cap, d, qn, k, int(mask_nodes),
         *_plan_args(p), _build.stream(queries))
     _build.check(err, "vdb_topk_sharded")
@@ -270,9 +274,10 @@ def launch_single(queries, db, valid, k: int):
     n_tickets = -(-qn // p["query_tile"]) * p["cluster_blocks"]
     merge = _merge_buffers(dev, (p["split"], qn, k), n_tickets,
                            p["split"] > 1)
-    err = _lib().vdb_topk_single_launch(
-        queries.data_ptr(), db.data_ptr(), valid.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), *_ptrs(merge), n, d, qn, k,
+    err = _build.launch(
+        queries, _lib().vdb_topk_single_launch, queries.data_ptr(),
+        db.data_ptr(), valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        *_ptrs(merge), n, d, qn, k,
         p["split"], p["segment"], *_plan_args(p), _build.stream(queries))
     _build.check(err, "vdb_topk")
     kernels.count_launch("vdb_topk", (qn, n, d, k))

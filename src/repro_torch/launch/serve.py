@@ -17,18 +17,25 @@ times.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --continuous --fault-schedule chaos --journal-dir /tmp/j --tenants 3
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mesh-nodes 3
+
 ``--fault-schedule`` runs the trace under a scripted chaos schedule
 (``repro_torch.faults``) and fails if any accepted job is lost;
 ``--journal-dir`` gives every node a durability journal, so a crashed
 node rejoins with its replayed cache; ``--tenants`` splits the trace
-across tagged tenants and prints their latency percentiles.  The sharded
-index (``--mesh-nodes`` > 1) is a later slice of the port and refused.
+across tagged tenants and prints their latency percentiles.
+``--mesh-nodes N`` shards the cluster index over N devices: N cards on
+``--device cuda`` (the run stops with exit code 2 where the process sees
+fewer: the mesh never falls back to one device unseen), N CPU shards on
+``--device cpu``; the results equal ``--mesh-nodes 1``'s.
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.core.embeddings import ProxyClipEmbedder
 from repro_torch.core.latency_model import CostModel, LatencyModel
@@ -52,13 +59,15 @@ def build_system(*, n_nodes: int = 4, corpus_n: int = 600,
                  use_prompt_optimizer=True, backend=None, seed=0,
                  node_speeds=None, routing: str = "score",
                  latent_depths=None, mesh_nodes: int = 1, res: int = 32,
-                 device="cuda"):
+                 device="cuda", mesh_devices=None):
     """Assemble the full CacheGenius stack over the synthetic corpus.
 
     Same arguments and behaviour as the JAX package's ``build_system``,
     plus ``res``, the corpus resolution (32 there; 256 feeds the
-    full-size VAE), and ``device``, where the K-means fit and the cluster
-    index run."""
+    full-size VAE), ``device``, where the K-means fit and the cluster
+    index run, and ``mesh_devices``, the devices of a ``mesh_nodes``
+    mesh (default: one card per shard, or CPU shards on the CPU; a card
+    may repeat)."""
     images, captions, _ = make_corpus(corpus_n, res=res, seed=seed)
     embedder = ProxyClipEmbedder(render_caption)
     img_vecs = embedder.embed_image(images)
@@ -82,7 +91,8 @@ def build_system(*, n_nodes: int = 4, corpus_n: int = 600,
         eviction=POLICIES[eviction], node_speeds=speeds,
         use_scheduler=use_scheduler,
         use_prompt_optimizer=use_prompt_optimizer, routing=routing,
-        latent_depths=latent_depths, mesh_nodes=mesh_nodes, device=device)
+        latent_depths=latent_depths, mesh_nodes=mesh_nodes, device=device,
+        mesh_devices=mesh_devices)
     return system, embedder, images, captions
 
 
@@ -155,7 +165,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where the K-means fit, the cluster index and "
                     "the node dbs' scans run")
-    ap.add_argument("--mesh-nodes", type=int, default=1)
+    ap.add_argument("--mesh-nodes", type=int, default=1,
+                    help="shard the cluster index's cache slabs over this "
+                    "many devices (one card each on --device cuda, CPU "
+                    "shards on --device cpu); scan results stay bitwise "
+                    "identical to one device")
     ap.add_argument("--fault-schedule", default=None,
                     choices=sorted(FAULT_PRESETS),
                     help="with --continuous: run under a scripted chaos "
@@ -177,9 +191,6 @@ def main(argv=None) -> int:
                     "deterministically, and print per-tenant/tier "
                     "queue-delay + wall percentiles")
     args = ap.parse_args(argv)
-    if args.mesh_nodes != 1:
-        ap.error("--mesh-nodes > 1 (a sharded cluster index) is not part of "
-                 "the PyTorch port yet")
     if args.max_batch < 1:
         ap.error("--max-batch must be >= 1")
     if args.arrival_rate <= 0:
@@ -199,6 +210,12 @@ def main(argv=None) -> int:
         ap.error("--slot-capacity requires --step-level")
     if args.slot_capacity is not None and args.slot_capacity < 1:
         ap.error("--slot-capacity must be >= 1")
+    if args.mesh_nodes < 1:
+        ap.error("--mesh-nodes must be >= 1")
+    if args.mesh_nodes > 1 and torch.device(args.device).type == "cuda" \
+            and torch.cuda.device_count() < args.mesh_nodes:
+        ap.error(f"--mesh-nodes {args.mesh_nodes} needs that many cards, "
+                 f"the process sees {torch.cuda.device_count()}")
 
     if args.latent_depths is not None:
         latent_depths = tuple(int(d) for d in args.latent_depths.split(","))
@@ -211,7 +228,7 @@ def main(argv=None) -> int:
         use_scheduler=not args.no_scheduler,
         use_prompt_optimizer=not args.no_prompt_optimizer,
         routing=args.routing, latent_depths=latent_depths,
-        device=args.device)
+        mesh_nodes=args.mesh_nodes, device=args.device)
     engine = ServingEngine(system, max_batch=args.max_batch)
 
     journals = (attach_journals(system, args.journal_dir)
@@ -284,6 +301,12 @@ def main(argv=None) -> int:
     print(f"requests           : {st.requests}")
     print(f"routing            : {args.routing}"
           + ("" if not args.no_scheduler else " (scheduler disabled)"))
+    ci = system.cluster_index
+    if ci is not None and ci.mesh is not None:
+        print(f"cluster mesh       : {ci.mesh_nodes} shards on "
+              f"{', '.join(str(d) for d in ci.mesh.devices)} "
+              f"({ci.n_nodes} nodes padded to {ci.padded_nodes}); "
+              f"{ci.stats['allgather_bytes']} bytes of lists gathered")
     print(f"route mix          : {st.route_counts}")
     print(f"hit rate           : {st.hit_rate:.3f}")
     print(f"mean steps/request : {st.mean_steps:.2f}"

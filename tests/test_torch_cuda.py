@@ -538,3 +538,170 @@ def test_libraries_and_tickets_are_made_once_across_threads(dev):
                                        mask_nodes=False),
                ref.vdb_topk_sharded_ref(q, slabs, valid, nids, 4,
                                         mask_nodes=False))
+
+
+# ---------------------------------------------------------------------------
+# kernels on any card of the process, and the node mesh
+# ---------------------------------------------------------------------------
+
+
+def _six_kernels(d):
+    """(name, kernel call, plain call, exact slot ids) of K1-K6 on inputs
+    on device ``d``, at shapes whose launches take more than 48 KB of
+    shared memory (a kernel attribute each launcher sets per device)."""
+    q, slabs, valid, nids = _scan_case(d, 8, 4, 400, 512, 11)
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn((2, 256, 12, 64), generator=g).to(d)
+    h = torch.randn((1, 256, 768), generator=g).to(d)
+    ada = torch.randn((1, 1536), generator=g).to(d)
+    fm = torch.randn((2, 64, 64, 128), generator=g).to(d)
+    sc, bi = (torch.randn((128,), generator=g).to(d) for _ in range(2))
+    return [
+        ("vdb_topk_pernode", lambda: ops.vdb_topk_pernode(q, slabs, valid, 8),
+         lambda: ref.vdb_topk_pernode_ref(q, slabs, valid, 8), True),
+        ("vdb_topk_sharded", lambda: ops.vdb_topk_sharded(
+            q, slabs, valid, nids, 8),
+         lambda: ref.vdb_topk_sharded_ref(q, slabs, valid, nids, 8), True),
+        ("vdb_topk_sharded(global)", lambda: ops.vdb_topk_sharded(
+            q, slabs, valid, nids, 8, mask_nodes=False),
+         lambda: ref.vdb_topk_sharded_ref(q, slabs, valid, nids, 8,
+                                          mask_nodes=False), True),
+        ("vdb_topk", lambda: ops.vdb_topk(q, slabs[0].reshape(-1, 512),
+                                          valid.reshape(-1), 8),
+         lambda: ref.vdb_topk_ref(q, slabs[0].reshape(-1, 512),
+                                  valid.reshape(-1), 8), True),
+        ("flash_attention", lambda: ops.flash_attention(x, x, x),
+         lambda: ref.flash_attention_ref(x, x, x), False),
+        ("adaln_modulate", lambda: ops.adaln_modulate(
+            h, ada[:, :768], ada[:, 768:]),
+         lambda: ref.adaln_modulate_ref(h, ada[:, :768], ada[:, 768:]),
+         False),
+        ("groupnorm_silu", lambda: ops.groupnorm_silu(fm, sc, bi),
+         lambda: ref.groupnorm_silu_ref(fm, sc, bi), False),
+    ]
+
+
+def test_kernels_launch_on_a_second_card(dev):
+    """Every kernel, launched first on card 0 and then on card 1 tensors
+    with the current device left at card 0, equals its plain version on
+    card 1, and the current device is still card 0 after each call."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    torch.cuda.set_device(0)
+    for _, kernel, _, _ in _six_kernels(dev):
+        kernel()
+    torch.cuda.synchronize(0)
+    other = torch.device("cuda", 1)
+    for name, kernel, plain, exact in _six_kernels(other):
+        got, want = kernel(), plain()
+        assert torch.cuda.current_device() == 0, name
+        if exact:
+            _same_topk(got, want)
+            assert got[0].device == other
+        else:
+            assert got.device == other
+            torch.testing.assert_close(got, want, **TOL)
+    torch.cuda.synchronize(1)
+
+
+def test_kernels_refuse_inputs_on_two_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    q, slabs, valid, _ = _scan_case(dev, 2, 2, 16, 16, 1)
+    with pytest.raises(ValueError, match="one device"):
+        ops.vdb_topk_pernode(q.to("cuda:1"), slabs, valid, 4)
+    x = torch.randn((1, 8, 1, 64), device=dev)
+    with pytest.raises(ValueError, match="one device"):
+        ops.flash_attention(x, x.to("cuda:1"), x)
+    with pytest.raises(ValueError, match="one device"):
+        ops.adaln_modulate(x[:, :, 0], x[:, 0, 0].to("cuda:1"), x[:, 0, 0])
+
+
+def _mesh_devices(kind: str, n: int):
+    if kind == "one card":
+        return [torch.device("cuda", 0)] * n
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("kind", ["one card", "a card per shard"])
+@pytest.mark.parametrize("mesh", [2, 3])
+def test_mesh_scans_on_the_card_equal_one_device(dev, kind, mesh):
+    """K1 and K2 (both modes) over 4 nodes split into 2 or 3 shards (pad
+    nodes at 3): every shard's lists equal the plain version's on
+    integer-valued inputs, and the merged lists equal one device's K1/K2
+    over the unsplit slab, slots and scores."""
+    from repro_torch.runtime import partition
+    q, slabs, valid, nids = _scan_case(dev, 8, 4, 400, 512, 21)
+    padded = partition.padded_nodes(4, mesh)
+    n = padded // mesh
+    full_s = torch.zeros((2, padded, 400, 512), device=dev)
+    full_s[:, :4] = slabs
+    full_v = torch.zeros((padded, 400), dtype=torch.bool, device=dev)
+    full_v[:4] = valid
+    devs = _mesh_devices(kind, mesh)
+    shards = [(full_s[:, s * n:(s + 1) * n].contiguous().to(devs[s]),
+               full_v[s * n:(s + 1) * n].contiguous().to(devs[s]))
+              for s in range(mesh)]
+    nid = nids.cpu().numpy()
+    got = ops.vdb_topk_pernode_mesh(q, shards, 8)
+    want = ops.vdb_topk_pernode_mesh(q, shards, 8, use_pallas=False)
+    assert np.array_equal(got[1], want[1])
+    one = vdb_topk.launch_pernode(q, slabs, valid, 8)
+    assert np.array_equal(got[1][:, :4], one[1].cpu().numpy())
+    assert np.array_equal(got[0][:, :4], one[0].cpu().numpy())
+    for mask in (True, False):
+        k_local = min(8, n * 400)
+        got = ops.vdb_topk_sharded_mesh(q, shards, nid, k_local,
+                                        mask_nodes=mask)
+        want = ops.vdb_topk_sharded_mesh(q, shards, nid, k_local,
+                                         mask_nodes=mask, use_pallas=False)
+        assert np.array_equal(got[1], want[1])
+        real = np.isfinite(want[0])
+        assert (got[0][~real] <= -1e29).all()
+        np.testing.assert_allclose(got[0][real], want[0][real], **TOL)
+        merged = ops.merge_shard_topk(*got, 8)
+        one = vdb_topk.launch_sharded(q, slabs, valid, nids, 8,
+                                      mask_nodes=mask)
+        assert np.array_equal(merged[1], one[1].cpu().numpy())
+        assert np.array_equal(merged[0], one[0].cpu().numpy())
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("kind", ["one card", "a card per shard"])
+def test_cluster_index_mesh_on_the_card_equals_the_cpu(dev, kind):
+    """A 5-node fleet over 3 shards on the card: the three searches equal
+    a CPU index's of mesh 1 over the same dbs, through rows added and
+    evicted on every shard."""
+    from repro_torch.core.cluster_index import ClusterIndex
+    from repro_torch.core.vdb import VectorDB
+    rng = np.random.default_rng(5)
+
+    def unit(n):
+        v = rng.standard_normal((n, 64)).astype(np.float32)
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    dbs = [VectorDB(64, 40, device=dev) for _ in range(5)]
+    for i, db in enumerate(dbs[:4]):
+        db.add(unit(10 + 7 * i), unit(10 + 7 * i), np.arange(10 + 7 * i),
+               0.0)
+    card = ClusterIndex.from_dbs(dbs, mesh_nodes=3,
+                                 mesh_devices=_mesh_devices(kind, 3))
+    cpu = ClusterIndex.from_dbs(dbs, device="cpu")
+    for i, db in enumerate(dbs):
+        db.add(unit(3), unit(3), np.arange(3) + 100, 1.0)
+        db.evict_slots(np.array([i]))
+    assert card.stats["slab_uploads"] == 1
+    Q = unit(6)
+    nids = rng.integers(0, 5, 6)
+    pairs = [(card.search_cluster(Q, 9), cpu.search_cluster(Q, 9)),
+             (card.search_batch(Q, nids, 8), cpu.search_batch(Q, nids, 8))]
+    pairs += list(zip(card.search_cluster_nodes(Q, 8),
+                      cpu.search_cluster_nodes(Q, 8)))
+    for got, want in pairs:
+        for (g_s, g_l), (w_s, w_l) in zip(got, want):
+            assert np.array_equal(g_l, w_l)
+            np.testing.assert_allclose(g_s, w_s, **TOL)
+    for a, b in zip(card.device_state(), card.rebuild_reference()):
+        assert np.array_equal(a, b)

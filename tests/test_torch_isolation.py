@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "repro_torch.convert", "repro_torch.core.journal",
                 "repro_torch.faults.injector",
                 "repro_torch.frontdoor.gateway",
-                "repro_torch.launch.frontdoor"):
+                "repro_torch.launch.frontdoor", "repro_torch.launch.mesh",
+                "repro_torch.runtime.partition"):
         assert mod in report["modules"]
 
 

@@ -92,7 +92,7 @@ def test_masked_scan_matches_oracle_and_jax(index, use_pallas):
                                                      index=index)
     _assert_rows_equal(got, want)
     assert ci.stats == {"slab_uploads": 1, "row_updates": 0,
-                        "fused_scans": 1}
+                        "fused_scans": 1, "allgather_bytes": 0}
 
 
 @pytest.mark.parametrize("use_pallas", [True, False])
@@ -191,11 +191,6 @@ def test_refresh_node_rebinds_restored_vdb():
     restored.add(_unit(rng, 1, 8), _unit(rng, 1, 8), np.array([99]), 1.0)
     for dev, ref in zip(ci.device_state(), ci.rebuild_reference()):
         np.testing.assert_array_equal(dev, ref)
-
-
-def test_sharded_index_is_refused():
-    with pytest.raises(NotImplementedError, match="mesh_nodes"):
-        ClusterIndex(8, [4, 4], mesh_nodes=2, device="cpu")
 
 
 @pytest.mark.parametrize("n", [240, 600])

@@ -144,19 +144,19 @@ def test_serve_cli_drain_path(capsys):
                                    "--fault-schedule", "chaos"],
                                   ["--tenants", "3"],
                                   ["--fault-schedule", "mixed"],
-                                  ["--mesh-nodes", "2"]])
+                                  ["--mesh-nodes", "0"]])
 def test_serve_cli_refuses_later_slices(flag, capsys):
-    """Faults, journals and tenants are ported: their flags are refused
-    only where the reference refuses them (a chaos schedule or tenants
-    without ``--continuous``, an unknown preset).  The sharded index is
-    still a later slice."""
+    """Faults, journals, tenants and the mesh are ported: their flags are
+    refused only where the reference refuses them (a chaos schedule or
+    tenants without ``--continuous``, an unknown preset, a mesh of no
+    shard)."""
     with pytest.raises(SystemExit) as exc:
         tserve.main(flag + ["--device", "cpu"])
     assert exc.value.code == 2
     want = {"--journal-dir": "--fault-schedule requires --continuous",
             "--tenants": "--tenants requires --continuous",
             "--fault-schedule": "invalid choice: 'mixed'",
-            "--mesh-nodes": "not part of the PyTorch port"}[flag[0]]
+            "--mesh-nodes": "--mesh-nodes must be >= 1"}[flag[0]]
     assert want in capsys.readouterr().err
 
 
