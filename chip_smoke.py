@@ -93,6 +93,26 @@ failure exits nonzero (nothing is caught):
    cache state, images within a stated tolerance; the DiT and the VAE
    with their kernels agree with their plain versions on the card at
    full size and with the CPU at a small size.
+5. flux — flux-dev (``src/repro/configs/flux_dev.py``) at full width and
+   depth (19 double + 38 single blocks, d_model 3072, 24 heads of 128,
+   ≈11.9 B parameters) built on the card in bf16 from a seeded CUDA
+   generator, its zero-initialised layers perturbed: the gen_fast
+   ``rf_edit`` generation (B=16, 512 px: the port's tokenizer and text
+   encoder give ``txt``/``vec``, the full VAE encodes 16 reference
+   images, 4 Euler steps at strength 0.6, a decode), then one step of
+   the gen_1024 program (B=4, 4096 + 256 tokens) on the same weights
+   with ``img_pos`` swapped; walls, ms per step, launches per kernel and
+   shape (K4 bf16 57 a forward), peak memory.  The full-depth velocity
+   must be finite (its difference from the plain path printed); a 2 + 2
+   block MMDiT at full width holds its kernel path to its plain path
+   within 2e-2 of scale, a small MMDiT (head dim 128, f32) the card to
+   the CPU; K6 against its plain version at every shape the phase
+   launched; K4 at bf16 at gen_fast's, gen_1024's and a head-dim-64
+   shape against its plain version (2e-2) and the f32 plain version,
+   with device, call, plain and SDPA ms and the bound.
+   It runs after the mesh drives and before the per-shape timing and
+   ranking of phase 4, which then include its shapes; its launch
+   counts join the kernel line's.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -926,20 +946,21 @@ def check_groupnorm_silu(gen, dev) -> dict:
 
 def shape_case(name: str, shape: tuple, gen, dev):
     """(kernel call, bound ms) of ``name`` at a shape key of
-    ``kernels.LAUNCHES_BY_SHAPE``, on random inputs."""
+    ``kernels.LAUNCHES_BY_SHAPE``, on random inputs drawn on the card
+    from ``gen`` (a generator of that card)."""
     import torch
 
     from repro_torch.kernels import adaln, flash_attention, groupnorm_silu
     from repro_torch.kernels import vdb_topk
 
-    def rnd(*sz):
-        return torch.randn(sz, generator=gen).to(dev)
+    def rnd(*sz, dtype=torch.float32):
+        return torch.randn(sz, generator=gen, device=dev, dtype=dtype)
     if name in ("vdb_topk_pernode", "vdb_topk_sharded"):
         qn, n_idx, n_nodes, cap, d, k = shape
         q, slabs = rnd(qn, d), rnd(n_idx, n_nodes, cap, d)
-        valid = torch.rand((n_nodes, cap), generator=gen).to(dev) < 0.7
-        nids = torch.randint(0, n_nodes, (qn,), generator=gen,
-                             dtype=torch.int32).to(dev)
+        valid = torch.rand((n_nodes, cap), generator=gen, device=dev) < 0.7
+        nids = torch.randint(0, n_nodes, (qn,), generator=gen, device=dev,
+                             dtype=torch.int32)
         base = (q.numel() + slabs.numel()) * 4 + valid.numel()
         flops = 2.0 * qn * n_idx * n_nodes * cap * d
         if name == "vdb_topk_pernode":
@@ -950,7 +971,7 @@ def shape_case(name: str, shape: tuple, gen, dev):
     if name == "vdb_topk":
         qn, n, d, k = shape
         q, db = rnd(qn, d), rnd(n, d)
-        valid = torch.rand((n,), generator=gen).to(dev) < 0.7
+        valid = torch.rand((n,), generator=gen, device=dev) < 0.7
         return (lambda: vdb_topk.launch_single(q, db, valid, k),
                 bound((q.numel() + db.numel()) * 4 + n + qn * k * 8,
                       2.0 * qn * n * d)[0])
@@ -959,6 +980,12 @@ def shape_case(name: str, shape: tuple, gen, dev):
         q, k, v = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d)
         return (lambda: flash_attention.launch(q, k, v, causal=bool(causal)),
                 fa_bound(b, sq, sk, h, d)[0][0])
+    if name == "flash_attention_bf16":
+        b, sq, sk, h, d, causal = shape
+        q = rnd(b, sq, h, d, dtype=torch.bfloat16)
+        k, v = (rnd(b, sk, h, d, dtype=torch.bfloat16) for _ in range(2))
+        return (lambda: flash_attention.launch(q, k, v, causal=bool(causal)),
+                fa_bf16_bound(b, sq, sk, h, d)[0])
     if name == "adaln_modulate":
         b, t, d = shape
         x, ada = rnd(b, t, d), rnd(b, 6 * d)
@@ -975,13 +1002,15 @@ def rank_by_shape(dev) -> list:
     (``SHAPES``), timed on the card; the redesign ranking is launches x
     (device - bound), summed over a kernel's shapes."""
     import torch
-    gen = torch.Generator().manual_seed(11)
+    gen = torch.Generator(dev).manual_seed(11)
     ranking = []
     for name in sorted(SHAPES):
         per = []
         for shape, n in sorted(SHAPES[name].items(), key=lambda kv: -kv[1]):
             fn, bd = shape_case(name, shape, gen, dev)
-            ms = device_ms(fn)
+            # a graph of 20 calls keeps 20 outputs: fewer for large ones
+            ms = device_ms(fn) if bd < 0.1 else device_ms(fn, reps=4,
+                                                          replays=5)
             per.append(dict(shape=list(shape), launches=n, ms=ms, bound_ms=bd))
             log(f"[launches] {name} {shape} x {n}: device {ms:.4f} ms, "
                 f"bound {bd:.4f} ms")
@@ -2139,6 +2168,413 @@ def check_against_references(system, backend, dev):
     return dict(dit_full_rel_err=rel, dit_small_cpu_rel_err=rel2)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: flux-dev (src/repro/configs/flux_dev.py) at full width, bf16
+# ---------------------------------------------------------------------------
+
+BF16_FLOP_PER_S = 989e12
+# K4 at bf16 against its plain version (the bf16 kernel tolerance of
+# tests/test_kernels.py): P rounds to bf16 in the kernel and in the plain
+# version's probabilities, at different points; also the MMDiT with the
+# kernel against its plain path, relative to the output's scale
+BF16_TOL = 2e-2
+FLUX_STEPS = 4            # gen_fast's steps
+FLUX_STRENGTH = 0.6
+# q/k/v shapes (B, S, H, D) of K4 at bf16: gen_fast's and gen_1024's joint
+# attention, and one at head dim 64
+FA_BF16_SHAPES = ((16, 1280, 24, 128), (4, 4352, 24, 128),
+                  (16, 1280, 48, 64))
+# the small MMDiT held against the CPU: head dim 128 as at full width
+FLUX_SMALL = dict(img_res=8, in_ch=4, patch=2, n_double=2, n_single=2,
+                  d_model=256, n_heads=2, txt_len=16, txt_dim=64,
+                  vec_dim=64)
+
+
+def events_ms(fn, reps: int = 3) -> float:
+    """Time per call of ``reps`` back-to-back eager calls between two CUDA
+    events, after one warm-up: for calls of a millisecond or more, whose
+    host launch cost is noise, and whose allocations are too large to
+    capture ``device_ms``'s 20 calls in one CUDA graph."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fa_bf16_bound(b: int, sq: int, sk: int, h: int, d: int):
+    """K4 bound at bf16: q, k, v read once and o written once (2 bytes
+    each); 4·B·H·Sq·Sk·D flops of products against the dense bf16 rate."""
+    byts = (2 * b * sq * h * d + 2 * b * sk * h * d) * 2
+    t_mem = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * b * h * sq * sk * d / BF16_FLOP_PER_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def check_flash_attention_bf16(gen, dev) -> dict:
+    """K4 at bf16 at ``FA_BF16_SHAPES``, v a strided view as the single
+    block hands it over (rows of 3·d + 4·d), against the plain version on
+    the same bf16 inputs (``BF16_TOL``) and against the plain version in
+    f32 from the same inputs; a ragged and a causal case; device ms of
+    kernel, plain and SDPA.  The row reported is gen_fast's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+    bf = torch.bfloat16
+    per_shape = []
+    for b, s_, h, d in FA_BF16_SHAPES:
+        width = 7 * h * d                      # linear1's row: 3d + 4d
+        u = torch.randn((b, s_, width), generator=gen).to(dev, bf)
+        q = u[..., :h * d].reshape(b, s_, h, d).contiguous()
+        k = u[..., h * d:2 * h * d].reshape(b, s_, h, d).contiguous()
+        v = u[..., 2 * h * d:3 * h * d].reshape(b, s_, h, d)   # strided
+        got = flash_attention.launch(q, k, v)
+        err = float((got.float() - ref.flash_attention_ref(q, k, v)
+                     .float()).abs().max())
+        err32 = float((got.float() - ref.flash_attention_ref(
+            q.float(), k.float(), v.float())).abs().max())
+        torch.cuda.empty_cache()
+        for name, e in (("plain", err), ("f32 plain", err32)):
+            if not e <= BF16_TOL:
+                raise AssertionError(f"flash_attention_bf16 {(b, s_, h, d)} "
+                                     f"vs {name}: err {e}")
+        bd = fa_bf16_bound(b, s_, s_, h, d)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        r = dict(shape=(b, s_, h, d), max_abs_err=err, err_f32_plain=err32,
+                 bound_ms=bd[0], bound_by=bd[1],
+                 ms=device_ms(lambda: flash_attention.launch(q, k, v),
+                              reps=10, replays=5),
+                 call_ms=call_ms(lambda: flash_attention.launch(q, k, v),
+                                 iters=10, runs=3),
+                 plain_ms=events_ms(lambda: ref.flash_attention_ref(q, k, v)),
+                 library_ms=device_ms(
+                     lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                     reps=10, replays=5))
+        per_shape.append(r)
+        log(f"[kernels] flash_attention_bf16 q/k/v {r['shape']} (v strided): "
+            f"err {err:.2e} vs plain, {err32:.2e} vs f32 plain (tol "
+            f"{BF16_TOL})  device {r['ms']:.4f} ms  call "
+            f"{r['call_ms']:.4f}  plain {r['plain_ms']:.4f}  SDPA "
+            f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}, bf16 989 TFLOP/s)")
+        del u, q, k, v, got, qt, kt, vt
+        torch.cuda.empty_cache()
+    for (b, sq, sk, h, d), causal in (((2, 1000, 1000, 4, 128), False),
+                                      ((2, 700, 1000, 4, 128), True),
+                                      ((2, 333, 333, 4, 64), True)):
+        q = torch.randn((b, sq, h, d), generator=gen).to(dev, bf)
+        k, v = (torch.randn((b, sk, h, d), generator=gen).to(dev, bf)
+                for _ in range(2))
+        got = flash_attention.launch(q, k, v, causal=causal)
+        e = float((got.float() - ref.flash_attention_ref(
+            q, k, v, causal=causal).float()).abs().max())
+        if not e <= BF16_TOL:
+            raise AssertionError(f"flash_attention_bf16 {(b, sq, sk, h, d)} "
+                                 f"causal={causal}: err {e}")
+        per_shape.append(dict(shape=(b, sq, sk, h, d), causal=causal,
+                              max_abs_err=e))
+        log(f"[kernels] flash_attention_bf16 q ({b}, {sq}, {h}, {d}), k/v "
+            f"({b}, {sk}, ...) causal={causal}: err {e:.2e}")
+    row = dict(per_shape[0])
+    row.update(name="flash_attention_bf16", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:82",
+               max_abs_err=max(r["max_abs_err"] for r in per_shape),
+               tol=BF16_TOL, per_shape=per_shape,
+               shape=f"q/k/v {per_shape[0]['shape']} bf16, v strided")
+    return row
+
+
+def flux_models(dev):
+    """flux-dev's gen_fast and gen_1024 programs, the MMDiT built once on
+    the card in bf16 from a CUDA generator (seeded) with its
+    zero-initialised layers perturbed, the text encoder and the full
+    VAE (f32)."""
+    import torch
+
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.models.diffusion.mmdit import perturb_zero_init_
+    from repro_torch.models.diffusion.text_encoder import (TextEncoder,
+                                                           TextEncoderConfig)
+    from repro_torch.models.diffusion.vae import VAE, VAEConfig
+    from repro_torch.runtime.steps import build_cell_program
+    arch = get_arch("flux-dev")
+    fast = build_cell_program(arch, get_shape("diffusion", "gen_fast"),
+                              device=dev)
+    big = build_cell_program(arch, get_shape("diffusion", "gen_1024"),
+                             device=dev)
+    t0 = time.perf_counter()
+    net = fast.init_fn(seed=0)
+    perturb_zero_init_(net, torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    te = TextEncoder(TextEncoderConfig(max_len=256), device=dev,
+                     generator=torch.Generator(dev).manual_seed(2)).eval()
+    vae = VAE(VAEConfig(**FULL_VAE),
+              generator=torch.Generator().manual_seed(3)).to(dev).eval()
+    return fast, big, net, te, vae, build_s
+
+
+def flux_conditioning(te, n: int, seed: int):
+    """``txt`` (n, 256, 768) and ``vec`` (n, 512) from the port's hash
+    tokenizer and text encoder over trace prompts, cast to bf16 as
+    ``apply_mmdit`` casts them."""
+    import torch
+
+    from repro_torch.core.trace import RequestTrace
+    from repro_torch.data.tokenizer import HashTokenizer
+    prompts = [r.prompt for r in RequestTrace(seed=seed).generate(n)]
+    tokens = HashTokenizer().encode_batch(prompts, max_len=te.cfg.max_len)
+    ctx, pooled = te(torch.from_numpy(tokens).to(te.embed.device))
+    return {"txt": ctx.to(torch.bfloat16), "vec": pooled.to(torch.bfloat16)}
+
+
+def flux_counts(label: str, want_bf16: int) -> dict:
+    """Read the launch counts after a flux drive; K4 at bf16 must have
+    launched ``want_bf16`` times."""
+    from repro_torch import kernels
+    counts = dict(kernels.LAUNCHES)
+    add_shapes()
+    if counts["flash_attention_bf16"] != want_bf16:
+        raise AssertionError(f"{label}: flash_attention_bf16 launched "
+                             f"{counts['flash_attention_bf16']} times, "
+                             f"want {want_bf16}")
+    for name, c in kernels.LAUNCHES_BY_SHAPE.items():
+        for shape, n in sorted(c.items()):
+            log(f"[flux] {label} launches: {name} {shape} x {n}")
+    return counts
+
+
+def check_new_gn_shapes(c_shapes, dev) -> list:
+    """K6 against its plain version at every shape the flux drive launched
+    it, with the partition the kernel takes there."""
+    import torch
+
+    from repro_torch.kernels import groupnorm_silu, ref
+    gen = torch.Generator(dev).manual_seed(31)
+    out = []
+    for shape in sorted(c_shapes):
+        x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+        c = shape[-1]
+        sc = torch.randn((c,), generator=gen, device=dev) * 0.3 + 1
+        bi = torch.randn((c,), generator=gen, device=dev) * 0.3
+        err = float((groupnorm_silu.launch(x, sc, bi)
+                     - ref.groupnorm_silu_ref(x, sc, bi)).abs().max())
+        if err > KERNEL_TOL:
+            raise AssertionError(f"groupnorm_silu {shape}: err {err}")
+        p = groupnorm_silu.plan(shape[1] * shape[2], c)
+        out.append(dict(shape=shape, max_abs_err=err, plan=p))
+        log(f"[flux] groupnorm_silu {shape}: err {err:.2e} (tol "
+            f"{KERNEL_TOL}); {p['slices']} slices x {p['cluster_blocks']} "
+            f"blocks, {p['thread_pixels_on_chip']}/{p['thread_pixels']} of "
+            f"a thread's pixels on chip")
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def run_flux(dev):
+    """Phase 5: flux-dev at full width and depth in bf16 on the card.
+    (b) the gen_fast ``rf_edit`` generation: conditioning from the text
+    encoder (K4 f32), the full VAE encodes 16 reference images (K6),
+    4 Euler steps at strength 0.6 (K4 bf16, 57 a step), a decode; (a)
+    one step of the gen_1024 program on the same weights (``img_pos``
+    swapped).  Then the checks: the full-depth velocity finite and
+    against the plain path at gen_fast, a 2 + 2 block full-width MMDiT
+    kernel against plain, a small MMDiT card against CPU, K6 at the new
+    shapes, the K4 bf16 rows.  Returns (launch counts of both drives,
+    summary, K4 bf16 row)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models.diffusion.mmdit import (MMDiT, MMDiTConfig,
+                                                    make_v_fn,
+                                                    perturb_zero_init_)
+    from repro_torch.models.diffusion.sampler import rf_edit
+    bf = torch.bfloat16
+    summary = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    fast, big, net, te, vae, build_s = flux_models(dev)
+    n_params = sum(p.numel() for p in net.parameters())
+    summary.update(build_s=build_s, params=n_params,
+                   weights_gb=(torch.cuda.memory_allocated(dev) - mem0) / 1e9)
+    log(f"[flux] flux-dev MMDiT built on the card in bf16: {n_params:,} "
+        f"parameters, {build_s:.1f} s; {summary['weights_gb']:.2f} GB "
+        "allocated with the text encoder and the VAE")
+    cfg = net.cfg
+    per_step = cfg.n_double + cfg.n_single      # K4 launches a forward
+    b = fast.cell.global_batch
+    res = fast.meta["latent"] * fast.meta["config"].vae.downsample
+    gen = torch.Generator(dev).manual_seed(4)
+    imgs = torch.rand((b, res, res, 3), generator=gen, device=dev) * 2 - 1
+    noise = torch.randn((b, cfg.img_res, cfg.img_res, cfg.in_ch),
+                        generator=gen, device=dev, dtype=bf)
+    step_ms = []
+    v_net = make_v_fn(net)
+
+    def v_fn(x, t, ctx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = v_net(x, t, ctx)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return v
+
+    # (b) the gen_fast rf_edit generation
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ctx = flux_conditioning(te, b, seed=21)
+        mean, _ = vae.encode(imgs)
+        z = rf_edit(v_fn, mean, ctx, steps=FLUX_STEPS,
+                    strength=FLUX_STRENGTH, dtype=bf, noise=noise)
+        out = vae.decode(z.float())
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    peak_b = torch.cuda.max_memory_allocated(dev)
+    c_fast = flux_counts("gen_fast rf_edit", per_step * FLUX_STEPS)
+    gn_fast = {s for s in kernels.LAUNCHES_BY_SHAPE["groupnorm_silu"]}
+    if c_fast["flash_attention"] != te.cfg.n_layers:
+        raise AssertionError(f"text encoder: {c_fast['flash_attention']} "
+                             "f32 flash_attention launches")
+    if tuple(out.shape) != (b, res, res, 3) or not bool(
+            torch.isfinite(out).all()) or not bool(torch.isfinite(z).all()):
+        raise AssertionError("flux rf_edit: output not finite or of the "
+                             f"wrong shape {tuple(out.shape)}")
+    summary["gen_fast"] = dict(
+        wall_s=wall_b, step_ms=step_ms, peak_gb=peak_b / 1e9,
+        launches={k: v for k, v in c_fast.items() if v})
+    log(f"[flux] gen_fast rf_edit (B={b}, {res} px, latent "
+        f"{cfg.img_res}, {cfg.n_img_tokens} + {cfg.txt_len} tokens, "
+        f"{FLUX_STEPS} steps at strength {FLUX_STRENGTH}; encode, steps, "
+        f"decode): wall {wall_b:.2f} s; ms per step "
+        + ", ".join(f"{m:.1f}" for m in step_ms)
+        + f"; K4 bf16 {c_fast['flash_attention_bf16']} launches "
+        f"({per_step} a forward x {FLUX_STEPS}), K4 f32 (text encoder) "
+        f"{c_fast['flash_attention']}, K6 {c_fast['groupnorm_silu']}; "
+        f"peak {peak_b / 1e9:.2f} GB")
+
+    # the full-depth velocity at the first step, kernel and plain path
+    ts = torch.full((b,), FLUX_STRENGTH, dtype=bf, device=dev)
+    x0 = (torch.tensor(1 - FLUX_STRENGTH, dtype=bf, device=dev)
+          * mean.to(bf) + torch.tensor(FLUX_STRENGTH, dtype=bf,
+                                       device=dev) * noise)
+    with torch.no_grad():
+        v_k = net(x0, ts, ctx)
+        net.cfg = cfg._replace(use_pallas=False)
+        v_p = net(x0, ts, ctx)
+        net.cfg = cfg
+    if not bool(torch.isfinite(v_k).all()):
+        raise AssertionError("flux-dev velocity is not finite")
+    summary["velocity_rel_err"] = rel_err(v_k, v_p)
+    summary["velocity_scale"] = float(v_p.float().abs().max())
+    log(f"[flux] full-depth velocity ({per_step} blocks, gen_fast): finite; "
+        f"kernel vs plain path {summary['velocity_rel_err']:.2e} of scale "
+        f"{summary['velocity_scale']:.3f}")
+    del v_k, v_p, x0, mean, z, out, imgs
+
+    # (a) one step of the gen_1024 program, on the same weights
+    net.set_img_res(big.meta["latent"],
+                    generator=torch.Generator(dev).manual_seed(5))
+    (x_shape, x_dt), _, _, _ = big.arg_shapes
+    g2 = torch.Generator(dev).manual_seed(6)
+    x = torch.randn(x_shape, generator=g2, device=dev, dtype=x_dt)
+    t = torch.full((x_shape[0],), 999, dtype=torch.int32, device=dev)
+    t_prev = torch.tensor(979, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        ctx_a = flux_conditioning(te, x_shape[0], seed=22)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x1 = big.step_fn(net, x, t, t_prev, ctx_a)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    peak_a = torch.cuda.max_memory_allocated(dev)
+    c_big = flux_counts("gen_1024 step", per_step)
+    if x1.dtype != bf or x1.shape != x.shape or not bool(
+            torch.isfinite(x1).all()) or torch.equal(x1, x):
+        raise AssertionError("gen_1024 step: output not finite, unchanged "
+                             "or of the wrong shape")
+    summary["gen_1024"] = dict(wall_s=wall_a, peak_gb=peak_a / 1e9,
+                               launches={k: v for k, v in c_big.items()
+                                         if v})
+    log(f"[flux] gen_1024 program, one step (B={x_shape[0]}, latent "
+        f"{x_shape[1]}, {net.cfg.n_img_tokens} + {cfg.txt_len} tokens): "
+        f"wall {wall_a * 1e3:.1f} ms; K4 bf16 "
+        f"{c_big['flash_attention_bf16']} launches; peak "
+        f"{peak_a / 1e9:.2f} GB")
+    del net, v_net, v_fn, x, x1, ctx, ctx_a
+    torch.cuda.empty_cache()
+
+    # a 2 + 2 block MMDiT at full width: kernel against the plain path
+    g3 = torch.Generator(dev).manual_seed(7)
+    cut = cfg._replace(n_double=2, n_single=2)
+    m = MMDiT(cut, device=dev, dtype=bf, generator=g3).eval()
+    perturb_zero_init_(m, g3)
+    xs = torch.randn((b, cut.img_res, cut.img_res, cut.in_ch), generator=g3,
+                     device=dev, dtype=bf)
+    cs = {"txt": torch.randn((b, cut.txt_len, cut.txt_dim), generator=g3,
+                             device=dev, dtype=bf),
+          "vec": torch.randn((b, cut.vec_dim), generator=g3, device=dev,
+                             dtype=bf)}
+    tt = torch.rand((b,), generator=g3, device=dev).to(bf)
+    with torch.no_grad():
+        a = m(xs, tt, cs)
+        m.cfg = cut._replace(use_pallas=False)
+        p_ = m(xs, tt, cs)
+    summary["mmdit_cut_rel_err"] = rel_err(a, p_)
+    del m, a, p_
+    torch.cuda.empty_cache()
+
+    # a small MMDiT (head dim 128, f32): the card against the CPU
+    small = MMDiTConfig(**FLUX_SMALL)
+    g4 = torch.Generator().manual_seed(8)
+    m_cpu = MMDiT(small, device="cpu", generator=g4).eval()
+    perturb_zero_init_(m_cpu, g4)
+    m_gpu = MMDiT(small, device=dev).eval()
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    xs = torch.randn((2, 8, 8, 4), generator=g4)
+    cs = {"txt": torch.randn((2, 16, 64), generator=g4),
+          "vec": torch.randn((2, 64), generator=g4)}
+    tt = torch.tensor([0.9, 0.2])
+    with torch.no_grad():
+        want = m_cpu(xs, tt, cs)
+        got = m_gpu(xs.to(dev), tt.to(dev),
+                    {k: v.to(dev) for k, v in cs.items()}).cpu()
+    summary["mmdit_small_cpu_rel_err"] = rel_err(got, want)
+    for name, tol in (("mmdit_cut_rel_err", BF16_TOL),
+                      ("mmdit_small_cpu_rel_err", DIT_REL_TOL)):
+        if not summary[name] <= tol:
+            raise AssertionError(f"{name} = {summary[name]} > {tol}")
+    log(f"[check] MMDiT 2 + 2 blocks at full width (bf16, B={b}) kernel "
+        f"vs plain on the card: {summary['mmdit_cut_rel_err']:.2e} of scale "
+        f"(tol {BF16_TOL}); small MMDiT (head dim 128, f32) card vs CPU: "
+        f"{summary['mmdit_small_cpu_rel_err']:.2e} (tol {DIT_REL_TOL})")
+
+    summary["gn_new_shapes"] = check_new_gn_shapes(gn_fast, dev)
+    row = check_flash_attention_bf16(torch.Generator().manual_seed(9), dev)
+    counts = {k: c_fast[k] + c_big[k] for k in c_fast}
+    return counts, summary, row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=8,
@@ -2206,7 +2642,12 @@ def main() -> int:
         summary["mesh_scans"] = run_mesh_scans(dev)
         c_mesh, summary["mesh"] = run_mesh_serve(
             dev, backend, record, args.requests, Path(workdir))
-    for c in counts + (c_alone,) + c_faults + c_front + (c_mesh,):
+    t_flux = time.perf_counter()
+    c_flux, summary["flux"], fa_bf16 = run_flux(dev)
+    rows.insert(3, fa_bf16)             # after the f32 flash_attention row
+    summary["flux"]["seconds"] = time.perf_counter() - t_flux
+    log(f"[flux] phase took {summary['flux']['seconds']:.1f} s")
+    for c in counts + (c_alone,) + c_faults + c_front + (c_mesh, c_flux):
         launches = {k: launches.get(k, 0) + c[k] for k in c}
     for r in rows:
         if launches[r["name"]] == 0:

@@ -1,1 +1,2 @@
-"""Synthetic captioned corpus (numpy-only copy of the JAX package's)."""
+"""Synthetic captioned corpus and the hash tokenizer (numpy-only
+copies of the JAX package's)."""

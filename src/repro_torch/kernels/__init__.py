@@ -2,7 +2,8 @@
 PyTorch versions.
 
 Every kernel here replaces one Pallas TPU kernel of the JAX package
-(all six of them):
+(all six of them; flash attention has a float32 and a bfloat16 kernel,
+counted apart):
 
 ==========================  ======  ==========================================
 kernel                      route   replaces
@@ -11,6 +12,7 @@ kernel                      route   replaces
 ``vdb_topk_sharded``        CUDA    ``repro/kernels/vdb_topk.py::vdb_topk_sharded``
 ``vdb_topk``                CUDA    ``repro/kernels/vdb_topk.py::vdb_topk``
 ``flash_attention``         CUDA    ``repro/kernels/flash_attention.py::flash_attention``
+``flash_attention_bf16``    CUDA    the same, at bfloat16
 ``adaln_modulate``          CUDA    ``repro/kernels/adaln.py::adaln_modulate``
 ``groupnorm_silu``          CUDA    ``repro/kernels/groupnorm_silu.py::groupnorm_silu``
 ==========================  ======  ==========================================
@@ -32,7 +34,8 @@ from collections import Counter
 from typing import Dict, Tuple
 
 KERNELS = ("vdb_topk_pernode", "vdb_topk_sharded", "vdb_topk",
-           "flash_attention", "adaln_modulate", "groupnorm_silu")
+           "flash_attention", "flash_attention_bf16", "adaln_modulate",
+           "groupnorm_silu")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 LAUNCHES_BY_SHAPE: Dict[str, Counter] = {name: Counter() for name in KERNELS}

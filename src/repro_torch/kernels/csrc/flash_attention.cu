@@ -58,6 +58,7 @@
 // fused qkv tensor); only the last axis must be contiguous, and rows must
 // be 16-byte aligned (the wrapper checks).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -489,6 +490,296 @@ int launch(const float* q, const float* k, const float* v, float* o, int b,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 inputs (flux-dev's MMDiT: head dim 128, up to 4352 tokens)
+//
+// The TPU kernel at bf16 loads bf16 tiles, upcasts them to f32, forms
+// S = Q K^T * scale and P in f32, accumulates P V in f32 and writes the
+// output in bf16.  Here:
+//   * Q K^T on mma.sync m16n8k16 bf16 with f32 accumulation: the bf16
+//     inputs are exact, so S is the TPU kernel's product up to the order of
+//     summation.  The scale (times log2 e: softmax in base 2) multiplies the
+//     f32 accumulator, never a bf16 operand.
+//   * P V on the same instruction, P rounded to bf16: a relative error of
+//     at most 2^-9 on each P entry, as the plain version's bf16
+//     probabilities carry.  P split into bf16 hi + lo (two products, P
+//     near f32; tools/kernel_diag.py builds it) came no closer to the f32
+//     plain version at the bf16 output (1.6e-3 either way at gen_fast's
+//     shape) and took 22 % longer.  The row sums l stay the f32 sums of
+//     P, as on the TPU.
+//   * A warp owns 16 query rows, a block four warps (64 rows) sharing K/V
+//     tiles of 64 keys that stream through a two-stage cp.async ring
+//     (16-byte copies, rows past Sk zero-filled).  Rows are padded by 8
+//     bf16 (16 bytes), so that K's 4-byte fragment loads (key g, dims
+//     2t, 2t + 1) and V's ldmatrix rows (8 x 16 bytes) hit distinct banks.
+//   * Q's A fragments (16 rows x D) are loaded once from device memory into
+//     registers.  S's accumulator is P's A fragment after packing to bf16:
+//     n-tiles 2j and 2j + 1 of S (keys 16j .. 16j + 15) are k-step j of P V.
+//     V's B fragments (keys 2t, 2t + 1 of dim g) come from
+//     ldmatrix.x4.trans, four 8 x 8 tiles a call.
+// What bounds it: operations, 4 B H Sq Sk D flops against the 989 TFLOP/s
+// dense bf16 rate (q/k/v/o are 0.14 GB at (4, 4352, 24, 128)).
+// ---------------------------------------------------------------------------
+
+namespace bf16fa {
+
+constexpr int BK = 64;           // keys per tile
+constexpr int WARPS = 4;         // row groups of 16 a block
+constexpr int NK = BK / 8;       // 8-key n-tiles of S
+constexpr int KP = BK / 16;      // 16-key k-steps of P V
+
+template <int D>
+struct Shape {
+  static constexpr int LD = D + 8;        // padded smem row (bf16)
+  static constexpr int TILE = BK * LD;    // one K or V tile (bf16)
+  static constexpr int STAGE = 2 * TILE;  // K then V
+  static constexpr int KS = D / 16;       // k-steps of Q K^T
+  static constexpr int NO = D / 8;        // 8-dim n-tiles of O
+  static constexpr size_t SMEM = 2 * STAGE * sizeof(__nv_bfloat16);
+};
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as one bf16x2 register, round to nearest even; `lo` in the
+// low half (the smaller column of a fragment)
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// K and V tile t into `stage` as one commit group; rows >= sk zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* stage,
+                                          const __nv_bfloat16* kb,
+                                          const __nv_bfloat16* vb,
+                                          long long k_ss, long long v_ss,
+                                          int t, int sk) {
+  using S = Shape<D>;
+  constexpr int C8 = D / 8;                  // 16-byte chunks a row
+  __nv_bfloat16* ks = stage;
+  __nv_bfloat16* vs = stage + S::TILE;
+  const int k0 = t * BK;
+  for (int e = threadIdx.x; e < BK * C8; e += blockDim.x) {
+    const int r = e / C8, c = 8 * (e % C8);
+    const bool ok = k0 + r < sk;
+    cp_async16(ks + r * S::LD + c, ok ? kb + (k0 + r) * k_ss + c : kb, ok);
+    cp_async16(vs + r * S::LD + c, ok ? vb + (k0 + r) * v_ss + c : vb, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * WARPS)
+flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               __nv_bfloat16* __restrict__ o, int n_heads, int sq, int sk,
+               long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+               long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+               long long v_sh, float qscale, int causal) {
+  using S = Shape<D>;
+  constexpr int LD = S::LD, KS = S::KS, NO = S::NO;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* kv = reinterpret_cast<__nv_bfloat16*>(smem4);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = blockIdx.x * WARPS * ROWS;
+  const int r0 = q0 + warp * ROWS;
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
+
+  int n_tiles = (sk + BK - 1) / BK;
+  if (causal) {
+    const int last = min(q0 + WARPS * ROWS, sq) - 1 + sk - sq;
+    n_tiles = min(n_tiles, last / BK + 1);
+  }
+  load_tile<D>(kv, kb, vb, k_ss, v_ss, 0, sk);
+
+  // Q's A fragments: a0 (g, 2t4..), a1 (g + 8, 2t4..), a2 (g, 2t4 + 8..),
+  // a3 (g + 8, 2t4 + 8..) of each 16-dim k-step; rows past sq are zero
+  uint32_t qf[KS][4];
+  {
+    const bool ok0 = r0 + g < sq, ok1 = r0 + g + 8 < sq;
+    const __nv_bfloat16* row0 = qb + (long long)(r0 + g) * q_ss;
+    const __nv_bfloat16* row1 = qb + (long long)(r0 + g + 8) * q_ss;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int c = 16 * kk + 2 * t4;
+      qf[kk][0] = ok0 ? *reinterpret_cast<const uint32_t*>(row0 + c) : 0u;
+      qf[kk][1] = ok1 ? *reinterpret_cast<const uint32_t*>(row1 + c) : 0u;
+      qf[kk][2] = ok0 ? *reinterpret_cast<const uint32_t*>(row0 + c + 8) : 0u;
+      qf[kk][3] = ok1 ? *reinterpret_cast<const uint32_t*>(row1 + c + 8) : 0u;
+    }
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {MASKED, MASKED};   // rows g and g + 8
+  float l[2] = {0.f, 0.f};         // this thread's share of the row sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();     // tile t visible to all; tile t - 1 no longer read
+    if (t + 1 < n_tiles)
+      load_tile<D>(kv + ((t + 1) & 1) * S::STAGE, kb, vb, k_ss, v_ss, t + 1,
+                   sk);
+    const __nv_bfloat16* ks = kv + (t & 1) * S::STAGE;
+    const __nv_bfloat16* vs = ks + S::TILE;
+
+    // S = Q K^T: n-tile j holds keys 8j + 2t4, 8j + 2t4 + 1 of rows g, g + 8
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const __nv_bfloat16* kp = ks + (8 * j + g) * LD + 16 * kk + 2 * t4;
+        mma_bf16(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
+                 *reinterpret_cast<const uint32_t*>(kp + 8));
+      }
+
+    const int k0 = t * BK;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] *= qscale;
+        if (causal || k0 + BK > sk) {
+          const int col = k0 + 8 * j + 2 * t4 + (i & 1);
+          const int row = r0 + g + 8 * (i >> 1);
+          if (col >= sk || (causal && row + sk - sq < col)) s[j][i] = MASKED;
+        }
+      }
+
+    // online softmax in base 2; the row max over the quad of a row
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = MASKED;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float corr = exp2f(m[hr] - m_new);
+      m[hr] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        s[j][2 * hr] = exp2f(s[j][2 * hr] - m_new);
+        s[j][2 * hr + 1] = exp2f(s[j][2 * hr + 1] - m_new);
+        rs += s[j][2 * hr] + s[j][2 * hr + 1];
+      }
+      l[hr] = l[hr] * corr + rs;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * hr] *= corr;
+        acc[n][2 * hr + 1] *= corr;
+      }
+    }
+
+    // O += P V over k-steps of 16 keys
+#pragma unroll
+    for (int kp = 0; kp < KP; ++kp) {
+      uint32_t pa[4];
+      pa[0] = pack(s[2 * kp][0], s[2 * kp][1]);
+      pa[1] = pack(s[2 * kp][2], s[2 * kp][3]);
+      pa[2] = pack(s[2 * kp + 1][0], s[2 * kp + 1][1]);
+      pa[3] = pack(s[2 * kp + 1][2], s[2 * kp + 1][3]);
+      // lanes 8m .. 8m + 7 address the rows of 8 x 8 tile m: keys
+      // 16 kp + (lane % 8) + 8 ((lane / 8) % 2), dims 8 n + 8 (lane / 16)
+      const __nv_bfloat16* vrow =
+          vs + (16 * kp + (lane % 8) + 8 * ((lane / 8) % 2)) * LD +
+          8 * (lane / 16);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vrow + 8 * n);
+        mma_bf16(acc[n], pa, vf[0], vf[1]);
+        mma_bf16(acc[n + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    const int row = r0 + g + 8 * hr;
+    if (row >= sq) continue;
+    const float inv = 1.f / fmaxf(l[hr], 1e-30f);
+    __nv_bfloat16* orow =
+        o + (((long long)b * sq + row) * n_heads + h) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * hr] * inv,
+                                acc[n][2 * hr + 1] * inv);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int h, int sq, int sk, const long long* st, float scale,
+           int causal, cudaStream_t stream) {
+  using S = Shape<D>;
+  static std::atomic<bool> ready[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(flash_fwd_bf16<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)S::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    ready[dev].store(true, std::memory_order_release);
+  }
+  dim3 grid((sq + ROWS * WARPS - 1) / (ROWS * WARPS), h, b);
+  flash_fwd_bf16<D><<<grid, 32 * WARPS, S::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      h, sq, sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], scale * LOG2E, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf16fa
+
 }  // namespace
 
 extern "C" {
@@ -510,6 +801,24 @@ int flash_attention_launch(const float* q, const float* k, const float* v,
     case 128:
       return launch<128>(q, k, v, o, b, h, sq, sk, strides, scale, causal,
                          stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same over bf16 q, k, v (row strides multiples of 8 elements, rows
+// 16-byte aligned) into a contiguous bf16 o; head dims 64 and 128.
+int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
+                                void* o, int b, int h, int sq, int sk, int d,
+                                const long long* strides, float scale,
+                                int causal, cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return bf16fa::launch<64>(q, k, v, o, b, h, sq, sk, strides, scale,
+                                causal, stream);
+    case 128:
+      return bf16fa::launch<128>(q, k, v, o, b, h, sq, sk, strides, scale,
+                                 causal, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,10 +1,11 @@
-"""Layers shared by the DiT and the VAE (the subset of the JAX package's
-``repro/models/common/layers.py`` they use).
+"""Layers shared by the diffusion models (the subset of the JAX
+package's ``repro/models/common/layers.py`` they use).
 
 Layout follows the JAX package at every public function: images and
 feature maps are NHWC, tokens are (B, T, D).  Parameters live in
-``nn.Module``s (``nn.Linear``, :class:`Conv`, :class:`GroupNorm`); the
-functions here are plain tensor code.
+``nn.Module``s (``nn.Linear``, :class:`Dense`, :class:`Conv`,
+:class:`GroupNorm`, :class:`LayerNorm`, :class:`RMSNorm`); the functions
+here are plain tensor code.
 """
 import math
 
@@ -13,13 +14,28 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def layernorm(x, *, eps: float = 1e-5):
-    """Affine-free LayerNorm over the last axis, computed in f32."""
+def layernorm(x, scale=None, bias=None, *, eps: float = 1e-5):
+    """LayerNorm over the last axis, computed in f32; affine-free unless
+    ``scale``/``bias`` are given."""
     dtype = x.dtype
     x = x.float()
     mean = x.mean(dim=-1, keepdim=True)
     var = (x - mean).square().mean(dim=-1, keepdim=True)
-    return ((x - mean) * torch.rsqrt(var + eps)).to(dtype)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    """RMSNorm over the last axis: computed in f32, times ``scale``, cast
+    back to x's dtype (the JAX package's ``rmsnorm``)."""
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dtype)
 
 
 def modulate(x, shift, scale):
@@ -73,13 +89,32 @@ def unpatchify(x, patch: int, h: int, w: int, c: int):
     return x.reshape(b, h, w, c)
 
 
-class MLP(nn.Module):
-    """fc2(gelu(fc1(x))) with the tanh GELU (``jax.nn.gelu``'s default)."""
+class Dense(nn.Linear):
+    """The JAX package's ``dense``: ``x @ w`` in the inputs' dtype, then
+    the bias cast to the output's dtype and added — in bf16 two roundings,
+    where ``nn.Linear`` rounds once.  Same parameters as ``nn.Linear``
+    (``weight`` (out, in), ``bias``); nothing is initialised here (the
+    owning model draws every weight)."""
 
-    def __init__(self, dim: int, hidden: int, out_dim=None):
+    def reset_parameters(self) -> None:
+        pass
+
+    def forward(self, x):
+        y = F.linear(x, self.weight)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class MLP(nn.Module):
+    """fc2(gelu(fc1(x))) with the tanh GELU (``jax.nn.gelu``'s default).
+    ``linear`` is the layer class of fc1/fc2 (``nn.Linear``, or
+    :class:`Dense`), ``factory`` its ``device``/``dtype``."""
+
+    def __init__(self, dim: int, hidden: int, out_dim=None, *,
+                 linear=nn.Linear, **factory):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim if out_dim is None else out_dim)
+        self.fc1 = linear(dim, hidden, **factory)
+        self.fc2 = linear(hidden, dim if out_dim is None else out_dim,
+                          **factory)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -115,6 +150,30 @@ class Conv(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class LayerNorm(nn.Module):
+    """Affine LayerNorm computed in f32 (params named as in the JAX
+    package: ``scale``, ``bias``)."""
+
+    def __init__(self, dim: int, **factory):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, **factory))
+        self.bias = nn.Parameter(torch.zeros(dim, **factory))
+
+    def forward(self, x):
+        return layernorm(x, self.scale, self.bias)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm (eps 1e-6) with a ``scale``, as the JAX package names it."""
+
+    def __init__(self, dim: int, **factory):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, **factory))
+
+    def forward(self, x):
+        return rmsnorm(x, self.scale)
+
+
 class GroupNorm(nn.Module):
     """Affine GroupNorm on NHWC tensors (params named as in the JAX
     package: ``scale``, ``bias``)."""
@@ -130,7 +189,8 @@ class GroupNorm(nn.Module):
 
 def init_normal_(module: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisers, drawn from ``generator``: weights
-    of ``nn.Linear`` and :class:`Conv` ~ N(0, 1/fan_in), biases zero."""
+    of ``nn.Linear`` (and :class:`Dense`) and :class:`Conv` ~ N(0,
+    1/fan_in), biases zero."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             fan_in = m.weight.shape[1]

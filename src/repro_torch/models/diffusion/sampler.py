@@ -1,11 +1,13 @@
-"""DDIM (Eq. 3), the SDEdit start (Eq. 4), the latent-depth resume and
-the ragged slot step — the subset of the JAX package's
-``repro/models/diffusion/sampler.py`` the serving path runs.
+"""DDIM (Eq. 3), the SDEdit start (Eq. 4), the latent-depth resume, the
+ragged slot step and rectified flow (Flux) — the JAX package's
+``repro/models/diffusion/sampler.py`` without its training losses.
 
 The JAX sampler runs the step loop under ``lax.scan``; here it is a
-Python loop (PyTorch runs eagerly), shared by every chain through
+Python loop (PyTorch runs eagerly), shared by every DDIM chain through
 :func:`_ddim_scan`.  ``ddim_timesteps`` stays host numpy, as in the JAX
-package.
+package, and so does ``rf_timesteps`` (the JAX package's is an f32
+``jnp.linspace``; the numpy here repeats XLA's arithmetic, see there).
+Noise comes from an explicit ``torch.Generator`` or an injected tensor.
 """
 from typing import Callable, Optional
 
@@ -128,3 +130,73 @@ def resume_sample(eps_fn: Callable, sched: DiffusionSchedule, latent, ctx,
     chain from the SDEdit initial state."""
     ts = ddim_timesteps(sched.T, steps, t_start=int(strength * sched.T))
     return _ddim_scan(eps_fn, sched, latent.float(), ctx, ts[k:])
+
+
+# ---------------------------------------------------------------------------
+# rectified flow (Flux-class MMDiT)
+# ---------------------------------------------------------------------------
+
+
+def rf_timesteps(steps: int, *, t_start: float = 1.0, shift: float = 1.0):
+    """Descending σ ∈ (t_start .. 0] as ``steps + 1`` float32 values;
+    ``shift`` is Flux's resolution-dependent time-shift
+    s·t / (1 + (s-1)·t).  The JAX package's ``jnp.linspace(t_start, 0,
+    steps + 1)`` as XLA evaluates it on the host: t_start·(1 - i·(1/steps))
+    in float32 (the division by the constant becomes a product with its
+    reciprocal), the last value 0 — bit for bit below 352 steps, and
+    within 3e-7 beyond, where XLA's generated loop rounds otherwise."""
+    f32 = np.float32
+    step = np.arange(steps, dtype=f32) * (f32(1.0) / f32(steps))
+    t = np.concatenate([f32(t_start) * (f32(1.0) - step),
+                        np.zeros(1, f32)]).astype(f32)
+    if shift != 1.0:
+        t = f32(shift) * t / (f32(1.0) + f32(shift - 1.0) * t)
+    return t
+
+
+def rf_sample(v_fn: Callable, shape, ctx, *, steps: int, shift: float = 1.0,
+              x_init=None, t_start: float = 1.0, dtype=torch.float32,
+              generator: Optional[torch.Generator] = None, device=None):
+    """Euler integration of dx/dt = v(x, t) from ``t_start`` down to 0.
+    ``v_fn(x, t, ctx)`` predicts the velocity (x1 - x0 direction).
+    ``x_init=None`` starts from N(0, I) drawn from ``generator`` on
+    ``device``.
+
+    Each update is the JAX package's type promotion: ``ts`` is float32,
+    so ``x + (t_nxt - t_cur) * v`` is computed in float32 whatever x's
+    dtype and cast back to it (PyTorch would not promote a 0-dim float32
+    against a bf16 tensor); the network sees t rounded to x's dtype."""
+    if x_init is None:
+        x = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=device)
+    else:
+        x = x_init
+    ts = rf_timesteps(steps, t_start=t_start, shift=shift)
+    for i in range(steps):
+        t_b = torch.full((shape[0],), float(ts[i]), dtype=dtype,
+                         device=x.device)
+        v = v_fn(x, t_b, ctx)
+        dt = torch.tensor(ts[i + 1] - ts[i], dtype=torch.float32,
+                          device=x.device)
+        x = (x.float() + dt * v.float()).to(dtype)
+    return x
+
+
+def rf_edit(v_fn: Callable, reference, ctx, *, steps: int,
+            strength: float = 0.6, shift: float = 1.0, dtype=torch.float32,
+            noise=None, generator: Optional[torch.Generator] = None):
+    """Rectified-flow SDEdit analogue: start at the straight-line
+    interpolant x_t = (1-t)·ref + t·ε with t = strength, integrate down.
+    ``noise`` is ε (reference's shape), or None to draw it from
+    ``generator`` on the reference's device.  The interpolant's scalars
+    round to ``dtype`` first, as JAX's weakly typed Python floats do."""
+    if noise is None:
+        noise = torch.randn(reference.shape, generator=generator,
+                            dtype=dtype, device=reference.device)
+    dev = reference.device
+    t0 = strength
+    x_init = (torch.tensor(1.0 - t0, dtype=dtype, device=dev)
+              * reference.to(dtype)
+              + torch.tensor(t0, dtype=dtype, device=dev) * noise.to(dtype))
+    return rf_sample(v_fn, reference.shape, ctx, steps=steps, shift=shift,
+                     x_init=x_init, t_start=t0, dtype=dtype)

@@ -29,6 +29,9 @@ from repro_torch.kernels import (adaln, flash_attention, groupnorm_silu, ops,
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=2e-5, atol=2e-5)
+# K4 at bf16 against its plain version (tests/test_kernels.py's bf16
+# tolerance): P rounds to bf16 in both, at different points
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
 @pytest.fixture(scope="module")
@@ -233,6 +236,64 @@ def test_flash_attention_on_the_dits_strided_slices(dev, b):
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     torch.testing.assert_close(flash_attention.launch(q, k, v),
                                ref.flash_attention_ref(q, k, v), **TOL)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(16, 1280, 24, 128), (4, 4352, 24, 128),
+                                     (2, 1000, 4, 64), (1, 77, 2, 128)])
+def test_flash_attention_bf16_matches_plain(dev, b, s, h, d):
+    """K4 at bf16 as flux-dev's blocks hand it over: q, k contiguous and
+    v a strided slice of the single block's fused projection (rows of
+    3·H·D + 4·H·D), at gen_fast's and gen_1024's joint attention, a
+    ragged length and head dim 64; against the plain version on the same
+    bf16 inputs and the plain version in f32."""
+    g = torch.Generator().manual_seed(s + d)
+    u = torch.randn((b, s, 7 * h * d), generator=g).to(dev, torch.bfloat16)
+    q = u[..., :h * d].reshape(b, s, h, d).contiguous()
+    k = u[..., h * d:2 * h * d].reshape(b, s, h, d).contiguous()
+    v = u[..., 2 * h * d:3 * h * d].reshape(b, s, h, d)
+    got = flash_attention.launch(q, k, v)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
+                               **BF16_TOL)
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(q.float(), k.float(),
+                                             v.float()), **BF16_TOL)
+
+
+@pytest.mark.parametrize("sq,sk", [(64, 64), (100, 300), (1, 256)])
+def test_flash_attention_bf16_causal_matches_plain(dev, sq, sk):
+    g = torch.Generator().manual_seed(sq)
+    q = torch.randn((2, sq, 3, 128), generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn((2, sk, 3, 128), generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    torch.testing.assert_close(flash_attention.launch(q, k, v, causal=True),
+                               ref.flash_attention_ref(q, k, v, causal=True),
+                               **BF16_TOL)
+
+
+def test_flash_attention_bf16_refuses_what_it_does_not_take(dev):
+    kernels.reset_launches()
+    x = torch.randn((1, 16, 2, 128), device=dev, dtype=torch.bfloat16)
+    for d in (32, 96):
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention.launch(x[..., :d], x[..., :d], x[..., :d])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.launch(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError, match="like q"):
+        flash_attention.launch(x, x.float(), x)
+    wide = torch.randn((1, 16, 2 * 128 + 4), device=dev,
+                       dtype=torch.bfloat16)
+    odd = wide[..., 4:].reshape(1, 16, 2, 128)   # rows not 16-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention.launch(x, x, odd)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.launch(x.cpu(), x.cpu(), x.cpu())
+    assert kernels.LAUNCHES["flash_attention_bf16"] == 0
+    flash_attention.launch(x, x, x)
+    assert kernels.LAUNCHES["flash_attention_bf16"] == 1
+    assert kernels.LAUNCHES["flash_attention"] == 0
+    assert kernels.LAUNCHES_BY_SHAPE["flash_attention_bf16"] == {
+        (1, 16, 16, 2, 128, 0): 1}
 
 
 def _kernels_per_call(fn) -> int:
@@ -546,12 +607,14 @@ def test_libraries_and_tickets_are_made_once_across_threads(dev):
 
 
 def _six_kernels(d):
-    """(name, kernel call, plain call, exact slot ids) of K1-K6 on inputs
-    on device ``d``, at shapes whose launches take more than 48 KB of
-    shared memory (a kernel attribute each launcher sets per device)."""
+    """(name, kernel call, plain call, exact slot ids) of K1-K6 (K4 at f32
+    and at bf16) on inputs on device ``d``, at shapes whose launches take
+    more than 48 KB of shared memory (a kernel attribute each launcher
+    sets per device)."""
     q, slabs, valid, nids = _scan_case(d, 8, 4, 400, 512, 11)
     g = torch.Generator().manual_seed(12)
     x = torch.randn((2, 256, 12, 64), generator=g).to(d)
+    xb = torch.randn((2, 256, 4, 128), generator=g).to(d, torch.bfloat16)
     h = torch.randn((1, 256, 768), generator=g).to(d)
     ada = torch.randn((1, 1536), generator=g).to(d)
     fm = torch.randn((2, 64, 64, 128), generator=g).to(d)
@@ -572,6 +635,8 @@ def _six_kernels(d):
                                   valid.reshape(-1), 8), True),
         ("flash_attention", lambda: ops.flash_attention(x, x, x),
          lambda: ref.flash_attention_ref(x, x, x), False),
+        ("flash_attention_bf16", lambda: ops.flash_attention(xb, xb, xb),
+         lambda: ref.flash_attention_ref(xb, xb, xb), False),
         ("adaln_modulate", lambda: ops.adaln_modulate(
             h, ada[:, :768], ada[:, 768:]),
          lambda: ref.adaln_modulate_ref(h, ada[:, :768], ada[:, 768:]),
@@ -600,7 +665,9 @@ def test_kernels_launch_on_a_second_card(dev):
             assert got[0].device == other
         else:
             assert got.device == other
-            torch.testing.assert_close(got, want, **TOL)
+            torch.testing.assert_close(
+                got, want, **(BF16_TOL if got.dtype == torch.bfloat16
+                               else TOL))
     torch.cuda.synchronize(1)
 
 

@@ -41,7 +41,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "repro_torch.faults.injector",
                 "repro_torch.frontdoor.gateway",
                 "repro_torch.launch.frontdoor", "repro_torch.launch.mesh",
-                "repro_torch.runtime.partition"):
+                "repro_torch.runtime.partition",
+                "repro_torch.configs.registry", "repro_torch.configs.shapes",
+                "repro_torch.configs.diffusion_common",
+                "repro_torch.configs.flux_dev", "repro_torch.configs.dit_b2",
+                "repro_torch.models.diffusion.mmdit",
+                "repro_torch.models.diffusion.text_encoder",
+                "repro_torch.data.tokenizer", "repro_torch.runtime.steps"):
         assert mod in report["modules"]
 
 

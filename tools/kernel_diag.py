@@ -17,6 +17,12 @@ changes.
   against the plain version, and its SASS instruction mix.  Then the
   shipped kernel with its block layout forced (row groups x key slots)
   at B = 1, 2, 4, 8.
+* K4 at bf16 (``flash_attention_bf16_launch``, ``--only k4bf16``): the
+  shipped kernel (P rounded to bf16 for P·V) against ``hilo`` (P split
+  into bf16 hi + lo, two products), at q/k/v (16, 1280, 24, 128) and
+  (4, 4352, 24, 128), v strided as the single block hands it over:
+  device ms and max |error| against the plain version on the same bf16
+  inputs and against the plain version in f32.
 * K6 (``groupnorm_silu.cu``): a traced copy (``%globaltimer`` at each
   phase of every block, and ``%smid``) under the shipped partition rule
   and three fixed ones (slices of >= 16 or >= 32 channels; blocks of up to
@@ -126,6 +132,76 @@ int flash_attention_layout(""")
   for (int i = 0; i < N; ++i) mma_tf32(d[n0 + i], ah, bl[i][0], bl[i][1]);
 """, "")
     return src
+
+
+def k4_bf16_source(variant: str) -> str:
+    """``hilo``: P.V as two products, P's bf16 hi (the shipped rounding)
+    and its bf16 lo (the f32 remainder), into one f32 accumulator."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    if variant == "hilo":
+        src = sub(src, "      pa[3] = pack(s[2 * kp + 1][2], s[2 * kp + 1][3]);\n",
+                  """      pa[3] = pack(s[2 * kp + 1][2], s[2 * kp + 1][3]);
+      uint32_t pl[4];
+      {
+        const float f[4][2] = {{s[2 * kp][0], s[2 * kp][1]},
+                               {s[2 * kp][2], s[2 * kp][3]},
+                               {s[2 * kp + 1][0], s[2 * kp + 1][1]},
+                               {s[2 * kp + 1][2], s[2 * kp + 1][3]}};
+        for (int i = 0; i < 4; ++i)
+          pl[i] = pack(f[i][0] - __uint_as_float(pa[i] << 16),
+                       f[i][1] - __uint_as_float(pa[i] & 0xffff0000u));
+      }
+""")
+        src = sub(src, "        mma_bf16(acc[n], pa, vf[0], vf[1]);\n",
+                  """        mma_bf16(acc[n], pl, vf[0], vf[1]);
+        mma_bf16(acc[n + 1], pl, vf[2], vf[3]);
+        mma_bf16(acc[n], pa, vf[0], vf[1]);
+""")
+    return src
+
+
+def diag_k4_bf16(torch, libs, dev, gen) -> dict:
+    """K4 at bf16, P as bf16 (shipped) against P as bf16 hi + lo."""
+    from repro_torch.kernels import ref
+    P, I = ctypes.c_void_p, ctypes.c_int
+    out = {}
+    for b, s, h, d in ((16, 1280, 24, 128), (4, 4352, 24, 128)):
+        u = torch.randn((b, s, 7 * h * d), generator=gen).to(
+            dev, torch.bfloat16)
+        q = u[..., :h * d].reshape(b, s, h, d).contiguous()
+        k = u[..., h * d:2 * h * d].reshape(b, s, h, d).contiguous()
+        v = u[..., 2 * h * d:3 * h * d].reshape(b, s, h, d)
+        want = ref.flash_attention_ref(q, k, v).float()
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float())
+        torch.cuda.empty_cache()
+        st = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                     *v.stride()[:3])
+        o = torch.empty((b, s, h, d), device=dev, dtype=torch.bfloat16)
+        for name in ("shipped", "hilo"):
+            lib = libs[f"fa16_{name}"]
+            fn = lib.flash_attention_bf16_launch
+            fn.argtypes = [P] * 4 + [I] * 5 + [P, ctypes.c_float, I, P]
+
+            def run():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), b, h, s, s, d, ctypes.cast(st, P),
+                         d ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+            run()
+            torch.cuda.synchronize()
+            r = dict(ms=device_ms(torch, run, reps=10, replays=5),
+                     err_plain=float((o.float() - want).abs().max()),
+                     err_f32_plain=float((o.float() - want32).abs().max()),
+                     sass=sass_mix(OUT / f"fa16_{name}.so",
+                                   "flash_fwd_bf16ILi128E"))
+            out[f"{name} {(b, s, h, d)}"] = r
+            print(f"[k4bf16] {name:<8} {(b, s, h, d)}: {r['ms']:.4f} ms, err "
+                  f"{r['err_plain']:.2e} vs plain, {r['err_f32_plain']:.2e} "
+                  f"vs f32 plain; SASS {r['sass'].get('total')} "
+                  f"instructions, top {r['sass'].get('top')}", flush=True)
+        del u, q, k, v, o, want, want32
+        torch.cuda.empty_cache()
+    return out
 
 
 def k6_source(rule) -> str:
@@ -1206,8 +1282,8 @@ def trace_k1(torch, lib, dev, gen) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("k1", "k2", "k3", "k4", "k5", "k6"),
-                    default=None)
+    ap.add_argument("--only", choices=("k1", "k2", "k3", "k4", "k4bf16",
+                                       "k5", "k6"), default=None)
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args()
     import numpy as np
@@ -1222,8 +1298,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"[card] {card}", flush=True)
-    want = {args.only} if args.only else {"k1", "k2", "k3", "k4", "k5",
-                                           "k6"}
+    want = {args.only} if args.only else {"k1", "k2", "k3", "k4", "k4bf16",
+                                           "k5", "k6"}
     k4 = ("shipped", "cvt", "hi", "raw") if "k4" in want else ()
     rules = tuple(GN_RULES) if "k6" in want else ()
     extra = {"nop": NOP_SOURCE}
@@ -1236,17 +1312,22 @@ def main() -> int:
     if "k1" in want:
         extra["vdb_argmax"] = k1_argmax_source()
         extra["vdb_trace"] = k1_trace_source()
+    k4bf16 = ("shipped", "hilo") if "k4bf16" in want else ()
     libs = build({**{f"fa_{v}": k4_source(v) for v in k4},
+                  **{f"fa16_{v}": k4_bf16_source(v) for v in k4bf16},
                   **{f"gn_{r}": k6_source(GN_RULES[r]) for r in rules},
                   **extra})
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    result = dict(card=card, k1={}, k2={}, k3={}, k4={}, k5={}, k6={})
+    result = dict(card=card, k1={}, k2={}, k3={}, k4={}, k4bf16={}, k5={},
+                  k6={})
     result["floor"] = launch_floor(torch, libs["nop"], dev)
     if "vdb_template" in libs:
         template_args(libs["vdb_template"])
     if "k5" in want:
         result["k5"] = diag_k5(torch, libs["adaln_pdl"], dev, gen)
+    if k4bf16:
+        result["k4bf16"] = diag_k4_bf16(torch, libs, dev, gen)
     if "k3" in want:
         result["k3"] = diag_k3(torch, libs["vdb_template"], dev, gen)
     if "k2" in want:
